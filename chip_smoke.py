@@ -7,14 +7,18 @@ Phases, in order; the first that fails ends the run with a non-zero exit:
   1. card: device name and count, ``nvidia-smi`` name and power limit;
   2. build: compile every CUDA kernel of the main path from ``csrc/`` and
      print the ``-Xptxas -v`` report;
-  3. kernel vs plain: each kernel against its plain PyTorch version at every
-     shape the main path gives it;
+  3. kernel vs plain: each kernel entry (stride-1 and fused masked up-conv)
+     against its plain PyTorch version at every shape the main path gives
+     it (and, as context, both against the plain version in f64);
   4. main path: ``FaceSwapper`` at 1024^2 (K=13, 18 styles, seeded random
      weights) answers 3 swap requests on the example pair; counts the kernel
-     launches of each request;
+     launches of each request (13: 7 stride-1 + 6 up);
   5. whole path, kernel vs plain: the same seeded swapper at 256^2 on the
      card and on the CPU (plain kernel versions), compared as PSNR;
-  6. kernel times with CUDA events against the roofline bound.
+  6. kernel times with CUDA events against two bounds: f32 outside the
+     tensor cores, and 3xTF32 on them (three TF32 passes, the kernel's
+     arithmetic). The weights are packed before the timed window, as the
+     model keeps them packed.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
 line before it is the per-kernel JSON summary. TF32 is off throughout.
@@ -32,29 +36,32 @@ import time
 import numpy as np
 import torch
 
-# H100 SXM published peaks: f32 outside the tensor cores, HBM3 bandwidth
+# H100 SXM published peaks: f32 outside the tensor cores, dense TF32 on
+# them, HBM3 bandwidth
 PEAK_F32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES = 3.35e12
 
-# Main-path shapes of the patch-modulated conv at B=1: (input H=W, Ci, Co,
-# launches per swap). Stride-1 convs run at their resolution, each masked
-# up-conv runs 4 polyphase launches at its input resolution.
+# Main-path launches of the patch-modulated conv at B=1, one each per swap:
+# (label, input H=W, Ci, Co, up). A stride-1 conv runs at its resolution; a
+# masked up-conv is one launch over its 4 polyphase convs at the input
+# resolution, writing the 2x output.
 PMC_STAGES = [
-    ("4^2 stride-1", 4, 512, 512, 1),
-    ("4->8 up", 4, 512, 512, 4),
-    ("8^2 stride-1", 8, 512, 512, 1),
-    ("8->16 up", 8, 512, 512, 4),
-    ("16^2 stride-1", 16, 512, 512, 1),
-    ("16->32 up", 16, 512, 512, 4),
-    ("32^2 stride-1", 32, 512, 512, 1),
-    ("32->64 up", 32, 512, 512, 4),
-    ("64^2 stride-1", 64, 512, 512, 1),
-    ("64->128 up", 64, 512, 256, 4),
-    ("128^2 stride-1", 128, 256, 256, 1),
-    ("128->256 up", 128, 256, 128, 4),
-    ("256^2 stride-1", 256, 128, 128, 1),
+    ("4^2 stride-1", 4, 512, 512, False),
+    ("4->8 up", 4, 512, 512, True),
+    ("8^2 stride-1", 8, 512, 512, False),
+    ("8->16 up", 8, 512, 512, True),
+    ("16^2 stride-1", 16, 512, 512, False),
+    ("16->32 up", 16, 512, 512, True),
+    ("32^2 stride-1", 32, 512, 512, False),
+    ("32->64 up", 32, 512, 512, True),
+    ("64^2 stride-1", 64, 512, 512, False),
+    ("64->128 up", 64, 512, 256, True),
+    ("128^2 stride-1", 128, 256, 256, False),
+    ("128->256 up", 128, 256, 128, True),
+    ("256^2 stride-1", 256, 128, 128, False),
 ]
-PMC_LAUNCHES_PER_SWAP = sum(s[4] for s in PMC_STAGES)  # 31
+PMC_LAUNCHES_PER_SWAP = len(PMC_STAGES)  # 13
 
 
 def log(msg=""):
@@ -88,41 +95,66 @@ def phase_build():
         log(f"[build] {line}")
 
 
-def _pmc_inputs(H, Ci, Co, seed):
+def _pmc_inputs(H, Ci, Co, up, seed):
+    """x [1,H,H,Ci]; w [Co,Ci,3,3] (or 4 phase weights for ``up``); smap,
+    dmap at the output resolution."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     dev = "cuda"
+    s = 2 if up else 1
     x = torch.randn((1, H, H, Ci), generator=g, device=dev)
-    w = torch.randn((Co, Ci, 3, 3), generator=g, device=dev) / math.sqrt(Ci * 9)
-    smap = 1.0 + 0.5 * torch.randn((1, H, H, Ci), generator=g, device=dev)
-    dmap = 0.5 + torch.rand((1, H, H, Co), generator=g, device=dev)
+    w = torch.randn(((4,) if up else ()) + (Co, Ci, 3, 3), generator=g,
+                    device=dev) / math.sqrt(Ci * 9)
+    smap = 1.0 + 0.5 * torch.randn((1, s * H, s * H, Ci), generator=g, device=dev)
+    dmap = 0.5 + torch.rand((1, s * H, s * H, Co), generator=g, device=dev)
     return x, w, smap, dmap
 
 
-def pmc_cost(H, Ci, Co):
-    """FLOPs and bytes of one launch: x, smap, dmap, out and W once, f32."""
-    flops = 2.0 * H * H * Co * Ci * 9
-    nbytes = 4.0 * (2 * H * H * Ci + 2 * H * H * Co + 9 * Ci * Co)
+def _pmc_entries(up):
+    from e4s_tpu_torch.ops import patch_modconv as pmc
+
+    if up:
+        return pmc.patch_mod_conv3_up_nhwc, pmc.patch_mod_conv3_up_nhwc_plain
+    return pmc.patch_mod_conv3_nhwc, pmc.patch_mod_conv3_nhwc_plain
+
+
+def pmc_cost(H, Ci, Co, up):
+    """FLOPs and bytes of one launch, f32: x, smap, dmap, out and every
+    phase weight once (an up launch: 4 phases, maps and output at 2H)."""
+    P, s = (4, 2) if up else (1, 1)
+    flops = 2.0 * H * H * Co * Ci * 9 * P
+    nbytes = 4.0 * (H * H * Ci + s * s * H * H * (Ci + 2 * Co) + P * 9 * Ci * Co)
     return flops, nbytes
 
 
-def phase_kernel_vs_plain():
-    from e4s_tpu_torch.ops.patch_modconv import (
-        patch_mod_conv3_nhwc,
-        patch_mod_conv3_nhwc_plain,
-    )
+def pmc_bounds(H, Ci, Co, up):
+    """(f32 SIMT bound ms, 3xTF32 tensor-core bound ms, what bounds the
+    latter): the larger of FLOPs over the peak and bytes over HBM."""
+    flops, nbytes = pmc_cost(H, Ci, Co, up)
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    f32 = max(flops / PEAK_F32_FLOPS * 1e3, t_bytes)
+    t_tc = 3 * flops / PEAK_TF32_FLOPS * 1e3
+    return f32, max(t_tc, t_bytes), "operations" if t_tc >= t_bytes else "bytes"
 
+
+def phase_kernel_vs_plain():
     worst = 0.0
-    for i, (label, H, Ci, Co, _) in enumerate(PMC_STAGES):
-        x, w, smap, dmap = _pmc_inputs(H, Ci, Co, seed=i)
-        got = patch_mod_conv3_nhwc(x, w, smap, dmap)
+    for i, (label, H, Ci, Co, up) in enumerate(PMC_STAGES):
+        kernel, plain = _pmc_entries(up)
+        x, w, smap, dmap = _pmc_inputs(H, Ci, Co, up, seed=i)
+        got = kernel(x, w, smap, dmap)
         torch.cuda.synchronize()
-        want = patch_mod_conv3_nhwc_plain(x, w, smap, dmap)
+        want = plain(x, w, smap, dmap)
         err = (got - want).abs().max().item()
         scale = want.abs().max().item()
         ok = err <= 1e-4 * scale and torch.isfinite(got).all().item()
-        log(f"[kernel] patch_mod_conv3 {label:15s} H={H:3d} {Ci:3d}->{Co:3d} "
+        # context: both against the plain version in f64
+        ref = plain(*(t.double() for t in (x, w, smap, dmap)))
+        e_k = (got.double() - ref).abs().max().item()
+        e_p = (want.double() - ref).abs().max().item()
+        log(f"[kernel] {kernel.__name__} {label:15s} H={H:3d} {Ci:3d}->{Co:3d} "
             f"max|diff|={err:.3e} max|plain|={scale:.3e} "
-            f"{'ok' if ok else 'FAIL'}")
+            f"{'ok' if ok else 'FAIL'}  [vs f64: kernel {e_k:.3e}, "
+            f"plain f32 {e_p:.3e}]")
         if not ok:
             raise SystemExit(f"FAIL kernel: patch_mod_conv3 at {label}")
         worst = max(worst, err)
@@ -151,34 +183,35 @@ def _time_cuda(fn, iters=20, flush=None):
 
 
 def phase_kernel_times():
-    from e4s_tpu_torch.ops.patch_modconv import (
-        patch_mod_conv3_nhwc,
-        patch_mod_conv3_nhwc_plain,
-    )
+    from e4s_tpu_torch.ops.patch_modconv import pack_weight, plan
 
     flush = torch.empty(256 * 1024 * 1024, dtype=torch.float32, device="cuda")
     rows = []
-    for i, (label, H, Ci, Co, n) in enumerate(PMC_STAGES):
-        x, w, smap, dmap = _pmc_inputs(H, Ci, Co, seed=i)
-        ms = _time_cuda(lambda: patch_mod_conv3_nhwc(x, w, smap, dmap), flush=flush)
-        plain = _time_cuda(
-            lambda: patch_mod_conv3_nhwc_plain(x, w, smap, dmap), flush=flush
-        )
-        # context only: a plain conv of the same shape is a different function
+    log("[time] weights packed before the timed window (the model keeps "
+        "them packed); plain takes the OIHW weights")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for i, (label, H, Ci, Co, up) in enumerate(PMC_STAGES):
+        kernel, plain = _pmc_entries(up)
+        x, w, smap, dmap = _pmc_inputs(H, Ci, Co, up, seed=i)
+        packed = pack_weight(w)
+        th, tw, splits = plan(1, H, H, Ci, Co, 4 if up else 1, sms)
+        ms = _time_cuda(lambda: kernel(x, w, smap, dmap, packed), flush=flush)
+        plain_ms = _time_cuda(lambda: plain(x, w, smap, dmap), flush=flush)
+        # context only: a plain conv of one phase's shape, a different function
         xc = x.permute(0, 3, 1, 2)
+        wc = w[0] if up else w
         conv = _time_cuda(
-            lambda: torch.nn.functional.conv2d(xc, w, padding=1), flush=flush
+            lambda: torch.nn.functional.conv2d(xc, wc, padding=1), flush=flush
         )
-        flops, nbytes = pmc_cost(H, Ci, Co)
-        t_ops, t_bytes = flops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
-        bound = max(t_ops, t_bytes)
-        by = "operations" if t_ops >= t_bytes else "bytes"
-        rows.append(dict(stage=label, launches=n, ms=ms, plain_ms=plain,
-                         bound_ms=bound, bound_by=by, flops=flops, bytes=nbytes))
-        log(f"[time] patch_mod_conv3 {label:15s} x{n} kernel {ms:.4f} ms  "
-            f"plain {plain:.4f} ms  bound {bound:.4f} ms ({by})  "
-            f"share {bound / ms:.3f}  [F.conv2d f32 same shape, other "
-            f"function: {conv:.4f} ms]")
+        flops, nbytes = pmc_cost(H, Ci, Co, up)
+        f32, tc, by = pmc_bounds(H, Ci, Co, up)
+        rows.append(dict(stage=label, ms=ms, plain_ms=plain_ms, f32_ms=f32,
+                         bound_ms=tc, bound_by=by, flops=flops, bytes=nbytes))
+        log(f"[time] patch_mod_conv3 {label:15s} tile {th}x{tw} splits "
+            f"{splits:2d}  kernel {ms:.4f} ms  plain "
+            f"{plain_ms:.4f} ms  f32 bound {f32:.4f} ms (share {f32 / ms:.3f})  "
+            f"3xTF32 bound {tc:.4f} ms ({by}, share {tc / ms:.3f})  "
+            f"[F.conv2d f32 one phase's shape, other function: {conv:.4f} ms]")
     return rows
 
 
@@ -275,13 +308,15 @@ def main():
     rows = phase_kernel_times()
 
     def per_swap(key):
-        return sum(r[key] * r["launches"] for r in rows)
+        return sum(r[key] for r in rows)
 
-    t_ops = sum(r["flops"] * r["launches"] for r in rows) / PEAK_F32_FLOPS * 1e3
-    t_bytes = sum(r["bytes"] * r["launches"] for r in rows) / PEAK_BYTES * 1e3
+    t_ops = 3 * sum(r["flops"] for r in rows) / PEAK_TF32_FLOPS * 1e3
+    t_bytes = sum(r["bytes"] for r in rows) / PEAK_BYTES * 1e3
     log(f"[time] patch_mod_conv3 per swap ({launches} launches): kernel "
-        f"{per_swap('ms'):.4f} ms, plain {per_swap('plain_ms'):.4f} ms, bound "
-        f"{per_swap('bound_ms'):.4f} ms (sum of per-launch bounds)")
+        f"{per_swap('ms'):.4f} ms, plain {per_swap('plain_ms'):.4f} ms, "
+        f"f32 bound {per_swap('f32_ms'):.4f} ms, 3xTF32 bound "
+        f"{per_swap('bound_ms'):.4f} ms (sums of per-launch bounds; share "
+        f"{per_swap('bound_ms') / per_swap('ms'):.3f})")
     summary = {"kernels": [{
         "name": "patch_mod_conv3",
         "route": "cuda",

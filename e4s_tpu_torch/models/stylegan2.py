@@ -26,6 +26,7 @@ import torch.nn as nn
 
 from e4s_tpu_torch.models.layers import EqualLinear, FusedLeakyReLU, PixelNorm
 from e4s_tpu_torch.ops.modconv import (
+    masked_conv_weights,
     masked_modulated_conv2d,
     masked_torgb,
     modulated_conv2d,
@@ -76,10 +77,29 @@ class ModulatedConv2d(nn.Module):
         self.blur_kernel = tuple(blur_kernel)
         if upsample:
             self.blur = _FirKernel(blur_kernel, 4.0)
+        self._kernel_weights = None  # masked_conv_weights, built once
+        self._kernel_weights_key = None
 
     def reset_parameters(self, generator):
         with torch.no_grad():
             self.weight.normal_(generator=generator)
+
+    def _masked_weights(self, w_scaled):
+        """The masked conv kernel's weights (the 3x3 or up-phase weights and
+        their packed layout), built once and rebuilt when the weight changes
+        in place (``load_state_dict``, an optimizer step) or moves. Where
+        the weight takes a gradient they are built per call instead, so the
+        gradient flows through them."""
+        if torch.is_grad_enabled() and self.weight.requires_grad:
+            return masked_conv_weights(w_scaled, self.upsample, self.blur_kernel)
+        key = (self.weight._version, self.weight.data_ptr(), self.weight.device,
+               self.weight.dtype)
+        if self._kernel_weights_key != key:
+            with torch.no_grad():
+                self._kernel_weights = masked_conv_weights(
+                    w_scaled, self.upsample, self.blur_kernel)
+            self._kernel_weights_key = key
+        return self._kernel_weights
 
     def forward(self, x, style, mask=None):
         """style: [B, style_dim], or [B, R, style_dim] with the one-hot
@@ -95,7 +115,7 @@ class ModulatedConv2d(nn.Module):
             return masked_torgb(x, w_scaled, s, mask)
         return masked_modulated_conv2d(
             x, w_scaled, s, mask, demodulate=self.demodulate, up=self.upsample,
-            blur_kernel=self.blur_kernel,
+            blur_kernel=self.blur_kernel, weights=self._masked_weights(w_scaled),
         )
 
 

@@ -14,8 +14,9 @@ conv whose modulation is gathered at the OUTPUT pixel:
 
 which is exactly what ``patch_mod_conv3_nhwc`` (the CUDA kernel) computes.
 An upsampling layer is conv_transpose(stride 2) followed by a FIR blur; that
-composite splits into 4 polyphase 3x3 kernels, each run as the same
-patch-modulated conv at the input resolution and interleaved to 2x.
+composite splits into 4 polyphase 3x3 kernels, each the same
+patch-modulated conv at the input resolution writing every other pixel of
+the 2x output: one launch of ``patch_mod_conv3_up_nhwc``.
 
 Tensors are NCHW-shaped. The synthesis keeps them in ``torch.channels_last``
 memory, so the kernel's NHWC view is a free permute and its NHWC output goes
@@ -27,7 +28,11 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from e4s_tpu_torch.ops.patch_modconv import patch_mod_conv3_nhwc
+from e4s_tpu_torch.ops.patch_modconv import (
+    pack_weight,
+    patch_mod_conv3_nhwc,
+    patch_mod_conv3_up_nhwc,
+)
 from e4s_tpu_torch.ops.resize import nearest_resize
 from e4s_tpu_torch.ops.upfirdn2d import make_kernel, upfirdn2d
 
@@ -108,39 +113,43 @@ def _composite_up_kernel(w_scaled, bk):
     return E
 
 
+def masked_conv_weights(w_scaled, up=False, blur_kernel=(1, 3, 3, 1)):
+    """What the kernel of ``masked_modulated_conv2d`` takes for one weight:
+    ``(wk, packed)`` with ``wk`` the 3x3 weight, or for ``up`` the four
+    polyphase weights [4,Co,Ci,3,3] of blur o conv_transpose2 (phase
+    (a, b) at index 2a+b), and ``packed`` its kernel layout (``pack_weight``;
+    None on the CPU, where the plain version runs). Fixed at inference: the
+    model builds it once per weight (``ModulatedConv2d``)."""
+    wk = w_scaled
+    if up:
+        if w_scaled.shape[-1] != 3 or len(blur_kernel) != 4:
+            raise ValueError("the polyphase path takes k=3 and a 4-tap blur only")
+        E = _composite_up_kernel(w_scaled, make_kernel(blur_kernel) * 4.0)
+        # phase kernel K_ab[t] = E[a+4-2t], t in {0,1,2}
+        wk = torch.stack([E[:, :, a::2, b::2].flip((2, 3))
+                          for a in (0, 1) for b in (0, 1)])
+    return wk, (pack_weight(wk) if wk.is_cuda else None)
+
+
 def masked_modulated_conv2d(x, w_scaled, s, mask, *, demodulate=True,
-                            up=False, blur_kernel=(1, 3, 3, 1)):
+                            up=False, blur_kernel=(1, 3, 3, 1), weights=None):
     """Exact fast path of the mask-guided modulated conv (module docstring).
 
     x: [B,Ci,H,W]; w_scaled: [Co,Ci,3,3]; s: [B,R,Ci]; mask: [B,R,Hm,Wm].
-    Returns [B,Co,H,W] (or 2x for ``up``) in channels-last memory. Every
-    3x3 conv here is one launch of the CUDA kernel on a GPU tensor (4 for an
-    upsampling layer)."""
-    B, R, Ci = s.shape
+    ``weights``: ``masked_conv_weights(w_scaled, up, blur_kernel)`` kept by
+    the caller, or None to build it here. Returns [B,Co,H,W] (or 2x for
+    ``up``) in channels-last memory. On a GPU tensor the layer is one launch
+    of the CUDA kernel, an upsampling layer included."""
     H, W = x.shape[-2:]
     d = demod_coeff(w_scaled, s) if demodulate else None
     xh = x.permute(0, 2, 3, 1).contiguous()  # free for channels-last x
-
-    if not up:
-        smap, dmap = _region_maps(nearest_resize(mask, (H, W)), s, d, x.dtype)
-        return patch_mod_conv3_nhwc(xh, w_scaled, smap, dmap).permute(0, 3, 1, 2)
-
-    if w_scaled.shape[-1] != 3 or len(blur_kernel) != 4:
-        raise ValueError("the polyphase path takes k=3 and a 4-tap blur only")
-    E = _composite_up_kernel(w_scaled, make_kernel(blur_kernel) * 4.0)
-    seg_full = nearest_resize(mask, (2 * H, 2 * W))
-    phases = []
-    for a in (0, 1):
-        row = []
-        for b in (0, 1):
-            # phase kernel K_ab[t] = E[a+4-2t], t in {0,1,2}
-            Kab = E[:, :, a::2, b::2].flip((2, 3))
-            sm, dm = _region_maps(seg_full[:, :, a::2, b::2], s, d, x.dtype)
-            row.append(patch_mod_conv3_nhwc(xh, Kab, sm, dm))
-        phases.append(torch.stack(row, dim=3))  # [B,H,W,b,Co]
-    out = torch.stack(phases, dim=2)  # [B,H,a,W,b,Co]
-    Co = w_scaled.shape[0]
-    return out.reshape(B, 2 * H, 2 * W, Co).permute(0, 3, 1, 2)
+    if weights is None:
+        weights = masked_conv_weights(w_scaled, up, blur_kernel)
+    wk, packed = weights
+    f = 2 if up else 1  # the maps live at the output resolution
+    smap, dmap = _region_maps(nearest_resize(mask, (f * H, f * W)), s, d, x.dtype)
+    conv = patch_mod_conv3_up_nhwc if up else patch_mod_conv3_nhwc
+    return conv(xh, wk, smap, dmap, packed).permute(0, 3, 1, 2)
 
 
 def masked_torgb(x, w_scaled, s, mask):

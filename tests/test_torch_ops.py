@@ -24,6 +24,7 @@ from e4s_tpu.ops.upfirdn2d import upfirdn2d as j_upfirdn2d
 from e4s_tpu.ops.upfirdn2d import upsample2 as j_upsample2
 from e4s_tpu.ops.pallas.modconv_tpu import patch_mod_conv3_nhwc as j_pallas
 
+from e4s_tpu_torch.models.stylegan2 import ModulatedConv2d
 from e4s_tpu_torch.ops import modconv as tmc
 from e4s_tpu_torch.ops import morphology as tmorph
 from e4s_tpu_torch.ops import patch_modconv as tpmc
@@ -84,7 +85,10 @@ def test_patch_mod_conv3_plain_matches_pallas_interpret(Ci, Co, H, W):
 def test_patch_mod_conv3_autograd_routes_through_plain(monkeypatch):
     """The autograd.Function's backward differentiates the plain version
     (the kernel launch itself is stood in for by the plain forward here)."""
-    monkeypatch.setattr(tpmc, "_launch", tpmc.patch_mod_conv3_nhwc_plain)
+    monkeypatch.setattr(
+        tpmc, "_launch",
+        lambda x, w, smap, dmap, packed, up: tpmc.patch_mod_conv3_nhwc_plain(
+            x, w, smap, dmap))
     rng = np.random.RandomState(2)
     ins = [rng.randn(*s).astype(np.float32)
            for s in ((1, 6, 5, 4), (8, 4, 3, 3), (1, 6, 5, 4), (1, 6, 5, 8))]
@@ -103,6 +107,126 @@ def test_patch_mod_conv3_wrapper_checks_inputs():
     with pytest.raises(TypeError):
         tpmc._launch(x.double(), torch.zeros(16, 8, 3, 3),
                      torch.zeros(1, 4, 4, 8).double(), None)
+
+
+def _up_case(rng, B, R, Ci, Co, H, W):
+    x = rng.randn(B, Ci, H, W).astype(np.float32)
+    w = (rng.randn(Co, Ci, 3, 3) / np.sqrt(Ci * 9)).astype(np.float32)
+    s = (1 + 0.3 * rng.randn(B, R, Ci)).astype(np.float32)
+    return x, w, s, _onehot(rng, B, R, 16)
+
+
+def _nhwc(a):
+    return np.ascontiguousarray(np.asarray(a).transpose(0, 2, 3, 1))
+
+
+@pytest.mark.parametrize("Ci,Co,H,W", [(32, 16, 5, 7), (16, 32, 8, 8)])
+def test_patch_mod_conv3_up_plain_matches_jax(Ci, Co, H, W):
+    """The fused up entry's plain version (4 stride-1 plain calls +
+    interleave) on the JAX package's own phase kernels and region maps
+    equals its masked up-conv, and so does the port's layer."""
+    rng = np.random.RandomState(12)
+    x, w, s, mask = _up_case(rng, 1, 12, Ci, Co, H, W)
+    want = np.asarray(jmc.masked_modulated_conv2d(x, w, s, mask, up=True))
+    E = np.asarray(jmc._composite_up_kernel(w, np.asarray(j_make_kernel((1, 3, 3, 1))) * 4.0))
+    wp = np.stack([E[:, :, (a + 4, a + 2, a)][:, :, :, (b + 4, b + 2, b)]
+                   for a in (0, 1) for b in (0, 1)])
+    d = jmc.demod_coeff(w, s)
+    smap, dmap = jmc._region_maps(mask, s, d, (2 * H, 2 * W), jnp.float32)
+    got = tpmc.patch_mod_conv3_up_nhwc(
+        _t(_nhwc(x)), _t(wp), _t(_nhwc(smap)), _t(_nhwc(dmap)))
+    assert got.shape == (1, 2 * H, 2 * W, Co)
+    assert rel_err(got, _nhwc(want)) < TOL
+    layer = tmc.masked_modulated_conv2d(_t(x), _t(w), _t(s), _t(mask), up=True)
+    assert rel_err(layer, want) < TOL
+    assert tpmc.patch_mod_conv3_nhwc.launches == 0  # CPU: no kernel launch
+
+
+def test_patch_mod_conv3_up_autograd_routes_through_plain(monkeypatch):
+    monkeypatch.setattr(
+        tpmc, "_launch",
+        lambda x, w, smap, dmap, packed, up: tpmc.patch_mod_conv3_up_nhwc_plain(
+            x, w, smap, dmap))
+    rng = np.random.RandomState(13)
+    ins = [rng.randn(*s).astype(np.float32) for s in (
+        (1, 3, 4, 4), (4, 8, 4, 3, 3), (1, 6, 8, 4), (1, 6, 8, 8))]
+    a = [_t(v).requires_grad_() for v in ins]
+    b = [_t(v).requires_grad_() for v in ins]
+    torch.sin(tpmc._PatchModConv3.apply(*a, None, True)).sum().backward()
+    torch.sin(tpmc.patch_mod_conv3_up_nhwc_plain(*b)).sum().backward()
+    for ga, gb in zip(a, b):
+        torch.testing.assert_close(ga.grad, gb.grad, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("up", [False, True])
+def test_pack_weight_tiles_hold_the_tf32_split(up):
+    """Each (K step, 128-channel block) tile holds tap t's [n, k] entry at
+    the core-matrix offset the kernel's wgmma descriptors read, as a TF32
+    high half plus a TF32 low half; padding past Co and Ci is zero."""
+    rng = np.random.RandomState(14)
+    Co, Ci = 136, 20
+    w = torch.from_numpy(rng.randn(*((4,) if up else ()), Co, Ci, 3, 3).astype(np.float32))
+    packed = tpmc.pack_weight(w)
+    P = 4 if up else 1
+    assert tuple(packed.shape) == tpmc.packed_shape(P, Co, Ci)
+    tiles = packed.reshape(P, 3, 2, 2, 9, 1024)
+    assert (tiles.view(torch.int32) & 0x1FFF).eq(0).all()  # TF32 values
+    wp = w.reshape(P, Co, Ci, 9)
+    for _ in range(300):
+        ph, o, i, tap = (rng.randint(n) for n in (P, Co, Ci, 9))
+        (step, k), (blk, n) = divmod(i, 8), divmod(o, 128)
+        j = (n >> 3) * 64 + (k >> 2) * 32 + (n & 7) * 4 + (k & 3)
+        hi, lo = tiles[ph, step, blk, :, tap, j]
+        assert abs(float(hi + lo) - float(wp[ph, o, i, tap])) <= 2e-7 * abs(float(wp[ph, o, i, tap]))
+    assert tiles[:, 2, :, :, :].reshape(-1, 1024)[:, 32:64].eq(0).all()  # k>=20
+    assert tiles[:, :, 1, :, :, 64:].eq(0).all()  # o >= 136
+
+
+@pytest.mark.parametrize("B,H,W,Ci,Co,P,splits", [
+    (1, 4, 4, 512, 512, 1, 32), (1, 4, 4, 512, 512, 4, 8),
+    (1, 16, 16, 512, 512, 1, 16), (1, 32, 32, 512, 512, 4, 1),
+    (1, 64, 64, 512, 512, 1, 2), (1, 256, 256, 128, 128, 1, 1),
+    (1, 3, 5, 200, 136, 1, 8),
+])
+def test_plan_splits_k_to_fill_the_card(B, H, W, Ci, Co, P, splits):
+    """Small layers split K until the grid fills 132 SMs in one wave; every
+    split keeps at least 2 K steps."""
+    th, tw, got = tpmc.plan(B, H, W, Ci, Co, P)
+    assert got == splits
+    blocks = B * P * -(-H // th) * -(-W // tw) * -(-Co // 128)
+    assert blocks * got <= max(132, blocks)
+    assert -(-Ci // 8) >= 2 * got or got == 1
+
+
+def test_modulated_conv_weights_cache_rebuilds_after_load_state_dict():
+    """The kernel's weights (phase kernels and packed layout) are built once
+    per weight and rebuilt after an in-place update of the weight; where
+    the weight takes a gradient they are built per call."""
+    g = torch.Generator().manual_seed(0)
+    conv = ModulatedConv2d(8, 16, 3, 16, upsample=True)
+    with torch.no_grad():
+        for p in conv.parameters():
+            p.copy_(torch.randn(p.shape, generator=g))
+    rng = np.random.RandomState(15)
+    x = _t(rng.randn(1, 8, 4, 4).astype(np.float32))
+    style = _t(rng.randn(1, 12, 16).astype(np.float32))
+    mask = _t(_onehot(rng, 1, 12, 8))
+    with torch.no_grad():
+        out0 = conv(x, style, mask)
+        cached = conv._kernel_weights
+        conv(x, style, mask)
+        assert conv._kernel_weights is cached
+        state = {k: v.clone() for k, v in conv.state_dict().items()}
+        state["weight"] = torch.randn(state["weight"].shape, generator=g)
+        conv.load_state_dict(state)
+        out1 = conv(x, style, mask)
+        assert conv._kernel_weights is not cached
+        fresh = tmc.masked_conv_weights(
+            conv.weight[0] * conv.scale, up=True, blur_kernel=conv.blur_kernel)
+        torch.testing.assert_close(conv._kernel_weights[0], fresh[0])
+    assert not torch.allclose(out0, out1)
+    conv(x, style, mask).sum().backward()
+    assert conv.weight.grad is not None and conv.weight.grad.abs().sum() > 0
 
 
 # ------------------------------------------------------------- masked convs
