@@ -2,12 +2,14 @@
 
 The inverse of the JAX package's checkpoint converters
 (``e4s_tpu/utils/torch_convert.py``: ``convert_net3_state_dict``,
-``convert_bisenet``). The keys are the reference checkpoints', so the result
+``convert_bisenet``, ``convert_segnext``). The keys are the reference checkpoints', so the result
 loads into the port's modules with ``load_state_dict`` and converts back to
 the same JAX tree. Leaves are read with ``np.asarray``; JAX is not needed.
 """
 
 from __future__ import annotations
+
+import re
 
 import numpy as np
 import torch
@@ -139,3 +141,64 @@ def _bisenet_path(q):
         else:
             out.append(part)
     return tuple(out)
+
+
+# JAX SegNeXt module names -> the mmseg checkpoint's
+_SEGNEXT_NAMES = {
+    "stem_conv1": "patch_embed1.proj.0", "stem_bn1": "patch_embed1.proj.1",
+    "stem_conv2": "patch_embed1.proj.3", "stem_bn2": "patch_embed1.proj.4",
+    "attn_proj_1": "attn.proj_1", "attn_proj_2": "attn.proj_2",
+    "attn_spatial": "attn.spatial_gating_unit", "mlp_fc1": "mlp.fc1",
+    "mlp_dwconv": "mlp.dwconv.dwconv", "mlp_fc2": "mlp.fc2",
+    "squeeze_conv": "squeeze.conv", "squeeze_norm": "squeeze.gn",
+    "ham_in": "ham_in.conv", "ham_out": "ham_out.conv",
+    "ham_out_norm": "ham_out.gn", "align_conv": "align.conv",
+    "align_norm": "align.gn",
+}
+
+
+def _segnext_key(path):
+    """JAX path (modules..., leaf) -> mmseg key: ``block2_0`` ->
+    ``block2.0``, ``patch_embed3_proj`` -> ``patch_embed3.proj``, the
+    LayerNorm leaf ``norm4_weight`` -> ``norm4.weight``."""
+    out = []
+    for part in path:
+        if part in _SEGNEXT_NAMES:
+            out.append(_SEGNEXT_NAMES[part])
+        else:
+            m = re.fullmatch(r"(block\d|norm\d|patch_embed\d)_(\w+)", part)
+            out.append(f"{m[1]}.{m[2]}" if m else part)
+    return ".".join(out)
+
+
+def segnext_state_dict_from_jax(variables):
+    """{"params": ..., "batch_stats": ...} of the JAX ``SegNeXt`` -> the
+    mmseg state_dict (BatchNorm with a zero ``num_batches_tracked``), the
+    inverse of ``e4s_tpu/utils/torch_convert.py::convert_segnext``; loads
+    into the port's ``SegNeXt``."""
+    out = {}
+    for coll in ("params", "batch_stats"):
+        for path, v in _flatten(variables[coll]):
+            key = _segnext_key(path)
+            out[key] = _t(v)
+            if path[-1] == "running_mean":
+                out[key[:-len("running_mean")] + "num_batches_tracked"] = (
+                    torch.zeros((), dtype=torch.long))
+    return out
+
+
+def segnext_variant_from_sd(sd):
+    """The ``SEGNEXT_VARIANTS`` entry whose stage widths and depths the
+    mmseg state_dict has."""
+    from e4s_tpu_torch.models.segnext import SEGNEXT_VARIANTS
+
+    dims = tuple(int(sd[f"backbone.norm{s}.weight"].shape[0]) for s in range(1, 5))
+    depths = tuple(
+        1 + max(int(k.split(".")[2]) for k in sd
+                if k.startswith(f"backbone.block{s}."))
+        for s in range(1, 5)
+    )
+    for name, cfg in SEGNEXT_VARIANTS.items():
+        if tuple(cfg["embed_dims"]) == dims and tuple(cfg["depths"]) == depths:
+            return name
+    raise ValueError(f"no SegNeXt variant has widths {dims} and depths {depths}")

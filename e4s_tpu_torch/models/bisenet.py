@@ -5,6 +5,7 @@ reference, so its ``79999_iter.pth`` loads with ``load_state_dict``.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
@@ -14,6 +15,7 @@ import torch.nn.functional as F
 
 from e4s_tpu_torch.models.encoders import FrozenBatchNorm
 from e4s_tpu_torch.ops.resize import bilinear_resize, nearest_resize
+from e4s_tpu_torch.utils.label_maps import ffhq_mask_to_faceparser_mask_detailed
 
 SEG_MEAN = (0.485, 0.456, 0.406)
 SEG_STD = (0.229, 0.224, 0.225)
@@ -153,6 +155,12 @@ class BiSeNet(nn.Module):
                      for o in outs)
 
 
+@functools.lru_cache(maxsize=None)
+def _bicubic_taps(factor: int, dtype: torch.dtype, device: torch.device):
+    """The 1-D taps as a tensor on ``device``, made once per factor."""
+    return torch.as_tensor(_bicubic_kernel_1d(factor), dtype=dtype, device=device)
+
+
 def _bicubic_kernel_1d(factor: int, a: float = -0.5) -> np.ndarray:
     size = factor * 4
 
@@ -180,7 +188,7 @@ def bicubic_downsample(x, factor: int, clip_round: bool = False):
     size = factor * 4
     pad = size - factor
     pad0, pad1 = pad // 2, pad - pad // 2
-    taps = torch.as_tensor(_bicubic_kernel_1d(factor), dtype=x.dtype).to(x.device)
+    taps = _bicubic_taps(factor, x.dtype, x.device)
     x = F.pad(x, (0, 0, pad0, pad1), mode="reflect")
     x = F.conv2d(x, taps.reshape(1, 1, size, 1).expand(C, 1, size, 1),
                  stride=(factor, 1), groups=C)
@@ -194,6 +202,14 @@ def bicubic_downsample(x, factor: int, clip_round: bool = False):
     return x
 
 
+@functools.lru_cache(maxsize=None)
+def _norm_consts(dtype: torch.dtype, device: torch.device):
+    """SEG_MEAN and SEG_STD as [1,3,1,1] tensors on ``device``, made once
+    (not a host-to-device copy per request)."""
+    return tuple(torch.tensor(v, dtype=dtype, device=device).reshape(1, 3, 1, 1)
+                 for v in (SEG_MEAN, SEG_STD))
+
+
 def parser_input(img01, parser_size: int = 512):
     """[B,3,S,S] in [0,1] -> the normalised [B,3,ps,ps] BiSeNet input."""
     if img01.shape[-1] >= parser_size:
@@ -201,22 +217,32 @@ def parser_input(img01, parser_size: int = 512):
     else:
         im = bilinear_resize(img01, (parser_size, parser_size))
     im = torch.clamp(im, 0.0, 1.0)
-    mean = img01.new_tensor(SEG_MEAN).reshape(1, 3, 1, 1)
-    std = img01.new_tensor(SEG_STD).reshape(1, 3, 1, 1)
+    mean, std = _norm_consts(im.dtype, im.device)
     return (im - mean) / std
 
 
 class FaceParser:
-    """Host-facing wrapper: __call__(img01 [B,3,S,S] in [0,1]) -> [B,512,512]
-    int64 19-class labels. ``model`` is a BiSeNet already on its device."""
+    """Host-facing wrapper: __call__(img01 [B,3,S,S] in [0,1]) ->
+    [B,ps,ps] int64 19-class labels, ps = ``parser_size`` (512, as the
+    reference). ``model`` is a BiSeNet already on its device."""
 
     taxonomy = "ffhq19"
 
-    def __init__(self, model: BiSeNet, size: int = 1024):
+    def __init__(self, model: BiSeNet, size: int = 1024, parser_size: int = 512):
         self.model = model
         self.size = size
+        self.parser_size = parser_size
 
     @torch.no_grad()
     def __call__(self, img01):
-        out, _, _ = self.model(parser_input(img01, 512))
+        out, _, _ = self.model(parser_input(img01, self.parser_size))
         return out.argmax(dim=1)
+
+
+def face_parsing_demo(parser: FaceParser, img01, convert_to_seg12: bool = True):
+    """Parse on the parser's device; numpy uint8 labels [B,ps,ps], converted
+    to the detailed 12 classes unless ``convert_to_seg12`` is false."""
+    seg = parser(img01).cpu().numpy().astype(np.uint8)
+    if convert_to_seg12:
+        seg = np.stack([ffhq_mask_to_faceparser_mask_detailed(s) for s in seg])
+    return seg

@@ -101,8 +101,8 @@ def init_module_(root: nn.Module, generator: torch.Generator) -> nn.Module:
     """Initialise every parameter and buffer of ``root`` from ``generator``,
     in module order, so a seed gives the same weights on every device (draw
     on the CPU, then move). Modules of this package define
-    ``reset_parameters(generator)``; ``nn.Conv2d`` and ``nn.PReLU`` get
-    PyTorch's own defaults."""
+    ``reset_parameters(generator)``; ``nn.Conv2d``, ``nn.PReLU``,
+    ``nn.LayerNorm`` and ``nn.GroupNorm`` get PyTorch's own defaults."""
     for m in root.modules():
         if isinstance(m, nn.Conv2d):
             fan_in = m.in_channels // m.groups * m.kernel_size[0] * m.kernel_size[1]
@@ -114,6 +114,8 @@ def init_module_(root: nn.Module, generator: torch.Generator) -> nn.Module:
         elif isinstance(m, nn.PReLU):
             with torch.no_grad():
                 m.weight.fill_(0.25)
+        elif isinstance(m, (nn.LayerNorm, nn.GroupNorm)):
+            m.reset_parameters()
         elif type(m).__module__.startswith("e4s_tpu_torch.") and hasattr(
             m, "reset_parameters"
         ):

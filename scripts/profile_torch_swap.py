@@ -1,16 +1,18 @@
 """Where the time of one 1024^2 swap of the PyTorch port goes, on one GPU.
 
-    python3 scripts/profile_torch_swap.py [--requests 5]
+    python3 scripts/profile_torch_swap.py [--requests 5] [--segnext] [--lap_bld]
 
 Builds ``e4s_tpu_torch``'s FaceSwapper at 1024^2 (K=13, 18 styles, seeded
-random weights, TF32 off), warms up, then over ``--requests`` swaps of the
-example pair reports:
+random weights, TF32 off; the BiSeNet parser and the feathered stitch, or
+with ``--segnext`` the SegNeXt-small parser and with ``--lap_bld`` the
+Laplacian blend), warms up, then over ``--requests`` swaps of the example
+pair reports:
 
   - host time per request, split into image loading (PIL decode + resize)
     and the fused swap (upload, device work, download);
-  - device time of each stage (BiSeNet parse, RGI encoder, LocalMLPs,
-    synthesis, and the rest: mask swap, stitch, casts), from CUDA events
-    recorded by forward hooks on the stage's modules;
+  - device time of each stage (parse, RGI encoder, LocalMLPs, synthesis,
+    the Laplacian blend with ``--lap_bld``, and the rest: mask swap,
+    stitch masks, casts), from CUDA events recorded around each stage;
   - from ``torch.profiler`` over one request: device busy time (sum of
     kernel times), the idle share of the request's wall time, and the
     kernels that take most device time.
@@ -31,39 +33,57 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
+from e4s_tpu_torch.pipelines import swap_core  # noqa: E402
 from e4s_tpu_torch.pipelines.face_swap import FaceSwapper  # noqa: E402
 
 EXAMPLE = os.path.join("example", "input", "faceswap")
 
 
+def _record(events, name):
+    e = torch.cuda.Event(enable_timing=True)
+    e.record()
+    events[name].append([e, None])
+
+
+def _close(events, name):
+    e = torch.cuda.Event(enable_timing=True)
+    e.record()
+    events[name][-1][1] = e
+
+
 def stage_timers(swapper):
     """Forward hooks that record a CUDA event pair around each stage's
-    modules; returns the per-request event lists."""
+    modules, and the same around the Laplacian blend; returns the
+    per-request event lists."""
     events = defaultdict(list)
-    stages = {"parse (BiSeNet)": [swapper.parser.model],
+    parser = type(swapper.parser.model).__name__
+    stages = {f"parse ({parser})": [swapper.parser.model],
               "encoder (RGI)": [swapper.net.encoder],
               "LocalMLPs": list(swapper.net.MLPs),
               "synthesis (G)": [swapper.net.G]}
     for name, mods in stages.items():
         for m in mods:
-            def pre(mod, args, name=name):
-                e = torch.cuda.Event(enable_timing=True)
-                e.record()
-                events[name].append([e, None])
+            m.register_forward_pre_hook(lambda mod, args, name=name: _record(events, name))
+            m.register_forward_hook(lambda mod, args, out, name=name: _close(events, name))
+    blend = swap_core.blend_images
 
-            def post(mod, args, out, name=name):
-                e = torch.cuda.Event(enable_timing=True)
-                e.record()
-                events[name][-1][1] = e
+    def timed_blend(*args, **kw):
+        _record(events, "Laplacian blend")
+        out = blend(*args, **kw)
+        _close(events, "Laplacian blend")
+        return out
 
-            m.register_forward_pre_hook(pre)
-            m.register_forward_hook(post)
+    swap_core.blend_images = timed_blend  # looked up at call time
     return events
 
 
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--requests", type=int, default=5)
+    ap.add_argument("--segnext", action="store_true",
+                    help="the SegNeXt-small parser instead of BiSeNet")
+    ap.add_argument("--lap_bld", action="store_true",
+                    help="the Laplacian blend instead of the feathered stitch")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA GPU")
@@ -74,6 +94,8 @@ def main():
     opts = types.SimpleNamespace(
         num_seg_cls=12, out_size=1024, remaining_layer_idx=13, n_styles=18,
         start_from_latent_avg=True, checkpoint_path=None, faceParsing_ckpt=None,
+        faceParser_name="segnext" if args.segnext else "default",
+        segnext_variant="small", lap_bld=args.lap_bld,
     )
     swapper = FaceSwapper(opts, device="cuda", seed=0)
     src, tgt = (os.path.join(EXAMPLE, f) for f in ("source.jpg", "target.jpg"))
@@ -110,7 +132,7 @@ def main():
         print(f"[profile] stage {name:16s} {ms:8.2f} ms device span "
               f"({len(pairs)} calls)")
     print(f"[profile] stage {'rest':16s} {total_dev[-1] - staged:8.2f} ms "
-          f"(mask swap, one-hots, stitch, casts, copies)")
+          f"(mask swap, one-hots, stitch masks, casts, copies)")
 
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
@@ -125,6 +147,9 @@ def main():
     print(f"[profile] profiled request: wall {wall:.2f} ms, device busy "
           f"{busy:.2f} ms (sum of kernel times), idle share "
           f"{1 - busy / wall:.3f}")
+    h2d = [e for e in kernels if "Memcpy HtoD" in e.key]
+    print(f"[profile] host-to-device copies: {sum(e.count for e in h2d)} "
+          f"({sum(e.self_device_time_total for e in h2d) / 1e3:.3f} ms)")
     rows = sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)
     for e in rows[:15]:
         print(f"[profile] {e.self_device_time_total / 1e3:8.3f} ms  "

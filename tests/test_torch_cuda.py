@@ -82,6 +82,15 @@ def test_patch_mod_conv3_kernel_matches_plain(card, H, Ci, Co):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("H,Ci,Co", MAIN_PATH_SHAPES)
+def test_patch_mod_conv3_kernel_matches_plain_at_batch_8(card, H, Ci, Co):
+    """``swap_batch``'s chunk of 8: the split-K plan takes fewer splits."""
+    x, w, smap, dmap = _inputs(H, Ci, Co, card, B=8)
+    _check(pmc.patch_mod_conv3_nhwc(x, w, smap, dmap),
+           pmc.patch_mod_conv3_nhwc_plain(x, w, smap, dmap))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("B,H,W,Ci,Co", RAGGED)
 def test_patch_mod_conv3_kernel_ragged_edges(card, B, H, W, Ci, Co):
     """Tiles that overhang H, W, Ci and Co; no dmap."""
@@ -153,3 +162,30 @@ def test_swap_on_the_card_matches_the_cpu(card):
         assert pmc.patch_mod_conv3_nhwc.launches == (7 if dev == "cuda" else 0)
     mse = np.mean((out["cuda"] - out["cpu"]) ** 2)
     assert mse == 0 or 10 * np.log10(255.0 ** 2 / mse) >= 40.0
+
+
+@pytest.mark.cuda
+def test_segnext_lap_bld_and_staged_paths_on_the_card_match_the_cpu(card):
+    """SegNeXt-tiny + lap_bld at 64^2 (K=7: 7 launches per request), fused
+    and staged with the CPU's own target parse as the mask."""
+    opts = types.SimpleNamespace(
+        num_seg_cls=12, out_size=64, remaining_layer_idx=7, n_styles=10,
+        start_from_latent_avg=True, encoder_size=64, parser_size=64,
+        faceParser_name="segnext", segnext_variant="tiny", lap_bld=True,
+    )
+    rng = np.random.RandomState(1)
+    src, tgt = (np.kron(rng.uniform(0, 1, (1, 3, 8, 8)), np.ones((8, 8)))
+                for _ in range(2))
+    out, mask = {}, None
+    for dev in ("cpu", "cuda"):
+        swapper = FaceSwapper(opts, device=dev, seed=3)
+        if mask is None:
+            mask = swapper._parse12(tgt)[0]
+        pmc.patch_mod_conv3_nhwc.launches = 0
+        out[dev] = [np.asarray(swapper.swap_from_arrays(src, tgt), np.float64),
+                    np.asarray(swapper.swap_from_arrays(src, tgt, target_mask=mask),
+                               np.float64)]
+        assert pmc.patch_mod_conv3_nhwc.launches == (14 if dev == "cuda" else 0)
+    for a, b in zip(out["cuda"], out["cpu"]):
+        mse = np.mean((a - b) ** 2)
+        assert mse == 0 or 10 * np.log10(255.0 ** 2 / mse) >= 40.0

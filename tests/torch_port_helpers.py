@@ -44,6 +44,14 @@ def _leaf(rng, path, shape):
         return 1.0 + 0.1 * n
     if name == "weight" and path[-2] == "noise":
         return 0.1 * n
+    if name.startswith("layer_scale_"):  # SegNeXt block residual scales
+        return 0.1 * n
+    # SegNeXt norms: block BatchNorms, GroupNorms, stage LayerNorms
+    if (name == "weight" and (path[-2] in ("norm1", "norm2")
+                              or path[-2].endswith("_norm"))):
+        return 1.0 + 0.1 * n
+    if name.startswith("norm") and name.endswith(("_weight", "_bias")):
+        return (1.0 if name.endswith("_weight") else 0.0) + 0.1 * n
     in_g = "G" in path or path[0].startswith(("style_", "conv1", "convs_", "to_rgb"))
     if name == "weight" and len(shape) == 4 and not in_g:
         return n / np.sqrt(np.prod(shape[1:]))  # plain conv: fan-in scale
