@@ -27,7 +27,19 @@ Phases, in order; the first that fails ends the run with a non-zero exit:
      (13 per chunk): swaps/s and peak memory; then the kernel against its
      plain version at batch 8 at all 13 stages, with times and bounds;
   9. the new paths at 256^2 on the card and on the CPU: the SegNeXt +
-     ``lap_bld`` fused swap and the staged target-mask path, as PSNR.
+     ``lap_bld`` fused swap and the staged target-mask path, as PSNR;
+ 10. the bf16 instantiation against its bf16 plain version at the 13
+     stages, B = 1 and 8, and its times (cold L2) against the bf16 bound;
+ 11. ``--bf16`` swaps at 1024^2 (BiSeNet + feather): 3 requests, 13 bf16
+     launches each, peak memory; then at 256^2 bf16 on the card against
+     bf16 on the CPU, and bf16 against f32 on the card, as PSNR;
+ 12. the edit sweep at 1024^2: ``Editor.interpolation_sweep`` with 4 alphas
+     over two regions on the ``faceedit`` pair, 13 launches for the sweep;
+     then at 256^2 the card against the CPU, as PSNR;
+ 13. inversion at 1024^2: 5 steps of ``Optimizer.invertion`` in f32 and in
+     bf16 on a synthetic face, the loss and ms of each step and 13 launches
+     per step's forward; then at 256^2 the card's and the CPU's losses over
+     3 steps in f32, within 1e-3 relative.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
 line before it is the per-kernel JSON summary. TF32 is off throughout.
@@ -45,11 +57,16 @@ import time
 import numpy as np
 import torch
 
-# H100 SXM published peaks: f32 outside the tensor cores, dense TF32 on
-# them, HBM3 bandwidth
+# H100 SXM published peaks: f32 outside the tensor cores, dense TF32 and
+# dense BF16 on them, HBM3 bandwidth
 PEAK_F32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
+# max |kernel - plain| allowed, relative to max |plain|: f32 sums of up to
+# 9 * 512 terms in another order; bf16 results that may round to the
+# neighbouring bf16 value (one ulp is 2^-8 relative)
+PMC_TOL = {torch.float32: 1e-4, torch.bfloat16: 8e-3}
 
 # Main-path launches of the patch-modulated conv at B=1, one each per swap:
 # (label, input H=W, Ci, Co, up). A stride-1 conv runs at its resolution; a
@@ -104,9 +121,9 @@ def phase_build():
         log(f"[build] {line}")
 
 
-def _pmc_inputs(H, Ci, Co, up, seed, B=1):
+def _pmc_inputs(H, Ci, Co, up, seed, B=1, dtype=torch.float32):
     """x [B,H,H,Ci]; w [Co,Ci,3,3] (or 4 phase weights for ``up``); smap,
-    dmap at the output resolution."""
+    dmap at the output resolution; drawn in f32, then cast to ``dtype``."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     dev = "cuda"
     s = 2 if up else 1
@@ -115,7 +132,7 @@ def _pmc_inputs(H, Ci, Co, up, seed, B=1):
                     device=dev) / math.sqrt(Ci * 9)
     smap = 1.0 + 0.5 * torch.randn((B, s * H, s * H, Ci), generator=g, device=dev)
     dmap = 0.5 + torch.rand((B, s * H, s * H, Co), generator=g, device=dev)
-    return x, w, smap, dmap
+    return tuple(t.to(dtype) for t in (x, w, smap, dmap))
 
 
 def _pmc_entries(up):
@@ -126,48 +143,64 @@ def _pmc_entries(up):
     return pmc.patch_mod_conv3_nhwc, pmc.patch_mod_conv3_nhwc_plain
 
 
-def pmc_cost(H, Ci, Co, up, B=1):
-    """FLOPs and bytes of one launch at batch B, f32: x, smap, dmap, out
-    and every phase weight once (an up launch: 4 phases, maps and output at
-    2H)."""
+def pmc_cost(H, Ci, Co, up, B=1, itemsize=4):
+    """FLOPs and bytes of one launch at batch B: x, smap, dmap, out and
+    every phase weight once, ``itemsize`` bytes each (an up launch: 4
+    phases, maps and output at 2H)."""
     P, s = (4, 2) if up else (1, 1)
     flops = 2.0 * B * H * H * Co * Ci * 9 * P
-    nbytes = 4.0 * (B * (H * H * Ci + s * s * H * H * (Ci + 2 * Co))
-                    + P * 9 * Ci * Co)
+    nbytes = itemsize * (B * (H * H * Ci + s * s * H * H * (Ci + 2 * Co))
+                         + P * 9 * Ci * Co)
     return flops, nbytes
 
 
-def pmc_bounds(H, Ci, Co, up, B=1):
-    """(f32 SIMT bound ms, 3xTF32 tensor-core bound ms, what bounds the
-    latter): the larger of FLOPs over the peak and bytes over HBM."""
-    flops, nbytes = pmc_cost(H, Ci, Co, up, B)
+def pmc_bounds(H, Ci, Co, up, B=1, dtype=torch.float32):
+    """(f32 SIMT bound ms, tensor-core bound ms, what bounds the latter):
+    each the larger of FLOPs over the peak and bytes over HBM. f32: the
+    3xTF32 split's three TF32 products; bf16: one bf16 product, 2-byte
+    activations and weights (its first entry is then the same bound)."""
+    if dtype == torch.bfloat16:
+        flops, nbytes = pmc_cost(H, Ci, Co, up, B, itemsize=2)
+        t_tc = flops / PEAK_BF16_FLOPS * 1e3
+    else:
+        flops, nbytes = pmc_cost(H, Ci, Co, up, B)
+        t_tc = 3 * flops / PEAK_TF32_FLOPS * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
-    f32 = max(flops / PEAK_F32_FLOPS * 1e3, t_bytes)
-    t_tc = 3 * flops / PEAK_TF32_FLOPS * 1e3
-    return f32, max(t_tc, t_bytes), "operations" if t_tc >= t_bytes else "bytes"
+    tc = max(t_tc, t_bytes)
+    f32 = tc if dtype == torch.bfloat16 else max(
+        flops / PEAK_F32_FLOPS * 1e3, t_bytes)
+    return f32, tc, "operations" if t_tc >= t_bytes else "bytes"
 
 
-def phase_kernel_vs_plain(B=1):
+def _dt(dtype):
+    return "bf16" if dtype == torch.bfloat16 else "f32"
+
+
+def phase_kernel_vs_plain(B=1, dtype=torch.float32):
+    """Both entries against their plain versions at the 13 stages, in
+    ``dtype``; returns the largest max |diff|."""
     worst = 0.0
+    tol = PMC_TOL[dtype]
     for i, (label, H, Ci, Co, up) in enumerate(PMC_STAGES):
         kernel, plain = _pmc_entries(up)
-        x, w, smap, dmap = _pmc_inputs(H, Ci, Co, up, seed=i, B=B)
+        x, w, smap, dmap = _pmc_inputs(H, Ci, Co, up, seed=i, B=B, dtype=dtype)
         got = kernel(x, w, smap, dmap)
         torch.cuda.synchronize()
         want = plain(x, w, smap, dmap)
-        err = (got - want).abs().max().item()
-        scale = want.abs().max().item()
-        ok = err <= 1e-4 * scale and torch.isfinite(got).all().item()
-        # context: both against the plain version in f64
+        err = (got.float() - want.float()).abs().max().item()
+        scale = want.float().abs().max().item()
+        ok = err <= tol * scale and torch.isfinite(got).all().item()
+        # context: both against the plain version in f64 on the same inputs
         ref = plain(*(t.double() for t in (x, w, smap, dmap)))
         e_k = (got.double() - ref).abs().max().item()
         e_p = (want.double() - ref).abs().max().item()
-        log(f"[kernel] B={B} {kernel.__name__} {label:15s} H={H:3d} {Ci:3d}->{Co:3d} "
-            f"max|diff|={err:.3e} max|plain|={scale:.3e} "
-            f"{'ok' if ok else 'FAIL'}  [vs f64: kernel {e_k:.3e}, "
-            f"plain f32 {e_p:.3e}]")
+        log(f"[kernel] {_dt(dtype)} B={B} {kernel.__name__} {label:15s} H={H:3d} "
+            f"{Ci:3d}->{Co:3d} max|diff|={err:.3e} max|plain|={scale:.3e} "
+            f"(limit {tol:g} of it) {'ok' if ok else 'FAIL'}  [vs f64: kernel "
+            f"{e_k:.3e}, plain {_dt(dtype)} {e_p:.3e}]")
         if not ok:
-            raise SystemExit(f"FAIL kernel: patch_mod_conv3 at {label}, B={B}")
+            raise SystemExit(f"FAIL kernel: patch_mod_conv3 {_dt(dtype)} at "
+                             f"{label}, B={B}")
         worst = max(worst, err)
     return worst
 
@@ -193,19 +226,21 @@ def _time_cuda(fn, iters=20, flush=None):
     return sum(a.elapsed_time(b) for a, b in events) / iters
 
 
-def phase_kernel_times(B=1):
-    from e4s_tpu_torch.ops.patch_modconv import pack_weight, plan
+def phase_kernel_times(B=1, dtype=torch.float32):
+    from e4s_tpu_torch.ops.patch_modconv import TILE_K, pack_weight, plan
 
     flush = torch.empty(256 * 1024 * 1024, dtype=torch.float32, device="cuda")
     rows = []
-    log(f"[time] B={B}: weights packed before the timed window (the model "
-        "keeps them packed); plain takes the OIHW weights")
+    dt = _dt(dtype)
+    log(f"[time] {dt} B={B}: weights packed before the timed window (the "
+        "model keeps them packed); plain takes the OIHW weights")
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     for i, (label, H, Ci, Co, up) in enumerate(PMC_STAGES):
         kernel, plain = _pmc_entries(up)
-        x, w, smap, dmap = _pmc_inputs(H, Ci, Co, up, seed=i, B=B)
+        x, w, smap, dmap = _pmc_inputs(H, Ci, Co, up, seed=i, B=B, dtype=dtype)
         packed = pack_weight(w)
-        th, tw, splits = plan(B, H, H, Ci, Co, 4 if up else 1, sms)
+        th, tw, splits = plan(B, H, H, Ci, Co, 4 if up else 1, sms,
+                              TILE_K[dtype])
         ms = _time_cuda(lambda: kernel(x, w, smap, dmap, packed), flush=flush)
         plain_ms = _time_cuda(lambda: plain(x, w, smap, dmap), flush=flush)
         # context only: a plain conv of one phase's shape, a different function
@@ -214,15 +249,18 @@ def phase_kernel_times(B=1):
         conv = _time_cuda(
             lambda: torch.nn.functional.conv2d(xc, wc, padding=1), flush=flush
         )
-        flops, nbytes = pmc_cost(H, Ci, Co, up, B)
-        f32, tc, by = pmc_bounds(H, Ci, Co, up, B)
+        flops, nbytes = pmc_cost(H, Ci, Co, up, B, x.element_size())
+        f32, tc, by = pmc_bounds(H, Ci, Co, up, B, dtype)
         rows.append(dict(stage=label, ms=ms, plain_ms=plain_ms, f32_ms=f32,
                          bound_ms=tc, bound_by=by, flops=flops, bytes=nbytes))
-        log(f"[time] B={B} patch_mod_conv3 {label:15s} tile {th}x{tw} splits "
-            f"{splits:2d}  kernel {ms:.4f} ms  plain "
-            f"{plain_ms:.4f} ms  f32 bound {f32:.4f} ms (share {f32 / ms:.3f})  "
-            f"3xTF32 bound {tc:.4f} ms ({by}, share {tc / ms:.3f})  "
-            f"[F.conv2d f32 one phase's shape, other function: {conv:.4f} ms]")
+        bounds = (f"bf16 bound {tc:.4f} ms ({by}, share {tc / ms:.3f})"
+                  if dtype == torch.bfloat16 else
+                  f"f32 bound {f32:.4f} ms (share {f32 / ms:.3f})  "
+                  f"3xTF32 bound {tc:.4f} ms ({by}, share {tc / ms:.3f})")
+        log(f"[time] {dt} B={B} patch_mod_conv3 {label:15s} tile {th}x{tw} "
+            f"splits {splits:2d}  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
+            f"{bounds}  [F.conv2d {dt} one phase's shape, other function: "
+            f"{conv:.4f} ms]")
     return rows
 
 
@@ -481,15 +519,245 @@ def phase_new_paths_vs_plain():
             raise SystemExit(f"FAIL whole: {name} PSNR {psnr:.2f} dB < 40")
 
 
-def _per_swap_line(rows, launches, B=1):
+def _psnr(a, b):
+    mse = np.mean((np.asarray(a, np.float64) - np.asarray(b, np.float64)) ** 2)
+    return float("inf") if mse == 0 else 10 * np.log10(255.0 ** 2 / mse)
+
+
+def _launch_counts():
+    from e4s_tpu_torch.ops.patch_modconv import patch_mod_conv3_nhwc
+
+    return patch_mod_conv3_nhwc.launches, patch_mod_conv3_nhwc.launches_bf16
+
+
+def _reset_launches():
+    from e4s_tpu_torch.ops.patch_modconv import patch_mod_conv3_nhwc
+
+    patch_mod_conv3_nhwc.launches = patch_mod_conv3_nhwc.launches_bf16 = 0
+
+
+def phase_bf16_swaps():
+    """FaceSwapper with ``bf16`` at 1024^2 answers 3 requests, each with 13
+    launches of the bf16 instantiation. Returns the launches of a request."""
+    from e4s_tpu_torch.pipelines.face_swap import FaceSwapper
+
+    t0 = time.perf_counter()
+    swapper = FaceSwapper(_opts(1024, 18, bf16=True), device="cuda", seed=0)
+    torch.cuda.synchronize()
+    log(f"[bf16] FaceSwapper 1024^2 bf16 built in {time.perf_counter() - t0:.1f} s")
+    if swapper.latent_avg.dtype != torch.bfloat16:
+        raise SystemExit("FAIL bf16: latent_avg is not bfloat16")
+    finite = _finite_hook(swapper)
+    src = os.path.join(EXAMPLE, "source.jpg")
+    tgt = os.path.join(EXAMPLE, "target.jpg")
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for r in range(3):
+        torch.cuda.synchronize()
+        _reset_launches()
+        t0 = time.perf_counter()
+        arr = np.asarray(swapper.swap(src, tgt))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        total, bf16 = _launch_counts()
+        log(f"[bf16] request {r}{' (warm-up)' if r == 0 else ''}: {times[-1]:.1f} ms, "
+            f"patch_mod_conv3 launches {total} (bf16 {bf16}), mean pixel {arr.mean():.2f}")
+        S = swapper.opts.out_size
+        if arr.shape != (S, S, 3) or arr.dtype != np.uint8:
+            raise SystemExit(f"FAIL bf16: result {arr.shape} {arr.dtype}")
+        if not finite[-1].item():
+            raise SystemExit("FAIL bf16: non-finite face before the uint8 cast")
+        if total != PMC_LAUNCHES_PER_SWAP or bf16 != total:
+            raise SystemExit(f"FAIL bf16: {total} launches ({bf16} bf16), want "
+                             f"{PMC_LAUNCHES_PER_SWAP} bf16")
+    log(f"[bf16] ms per 1024^2 bf16 swap (requests 1-2): "
+        f"{', '.join(f'{t:.1f}' for t in times[1:])}; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del swapper
+    torch.cuda.empty_cache()
+    return bf16
+
+
+def phase_bf16_vs_cpu_and_f32():
+    """The seeded swapper at 256^2: bf16 on the card against bf16 on the
+    CPU (the plain versions), and bf16 against f32 on the card; >= 40 dB."""
+    from e4s_tpu_torch.pipelines.face_swap import FaceSwapper
+
+    src = os.path.join(EXAMPLE, "source.jpg")
+    tgt = os.path.join(EXAMPLE, "target.jpg")
+    out = {}
+    for dev, bf16 in (("cuda", True), ("cpu", True), ("cuda", False)):
+        t0 = time.perf_counter()
+        swapper = FaceSwapper(_opts(256, 14, bf16=bf16), device=dev, seed=1)
+        out[dev, bf16] = np.asarray(swapper.swap(src, tgt))
+        log(f"[bf16] 256^2 swap on {dev}, {'bf16' if bf16 else 'f32'}: "
+            f"{time.perf_counter() - t0:.1f} s (build included)")
+        del swapper
+    for name, a, b in (("bf16 cuda vs bf16 cpu", out["cuda", True], out["cpu", True]),
+                       ("bf16 cuda vs f32 cuda", out["cuda", True], out["cuda", False])):
+        psnr = _psnr(a, b)
+        log(f"[bf16] {name}: uint8 PSNR {psnr:.2f} dB, max |diff| "
+            f"{np.abs(a.astype(np.int32) - b.astype(np.int32)).max()}")
+        if psnr < 40.0:
+            raise SystemExit(f"FAIL bf16: {name} PSNR {psnr:.2f} dB < 40")
+
+
+EDIT_EXAMPLE = os.path.join("example", "input", "faceedit")
+EDIT_ALPHAS = [0.0, 1 / 3, 2 / 3, 1.0]
+
+
+def _edit_opts(out_size, n_styles):
+    return _opts(out_size, n_styles, regions=["hair", "eyes"], alpha=1.0,
+                 source=os.path.join(EDIT_EXAMPLE, "source.jpg"),
+                 reference=os.path.join(EDIT_EXAMPLE, "reference.jpg"))
+
+
+def phase_edit_sweep():
+    """The edit sweep at 1024^2 (4 alphas, one batch): 13 launches, ms,
+    peak memory; then the sweep at 256^2 on the card against the CPU."""
+    from e4s_tpu_torch.pipelines.face_edit import Editor
+
+    t0 = time.perf_counter()
+    editor = Editor(_edit_opts(1024, 18), device="cuda", seed=0)
+    torch.cuda.synchronize()
+    log(f"[edit] Editor 1024^2 built in {time.perf_counter() - t0:.1f} s")
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for r in range(3):
+        torch.cuda.synchronize()
+        _reset_launches()
+        t0 = time.perf_counter()
+        imgs = editor.interpolation_sweep(EDIT_ALPHAS)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        total, _ = _launch_counts()
+        arrs = [np.asarray(i) for i in imgs]
+        log(f"[edit] sweep {r}{' (warm-up)' if r == 0 else ''} of {len(arrs)} alphas: "
+            f"{times[-1]:.1f} ms, patch_mod_conv3 launches {total}, mean pixels "
+            f"{', '.join(f'{a.mean():.2f}' for a in arrs)}")
+        S = editor.opts.out_size
+        if len(arrs) != len(EDIT_ALPHAS) or any(a.shape != (S, S, 3) for a in arrs):
+            raise SystemExit("FAIL edit: results of the wrong number or shape")
+        if total != PMC_LAUNCHES_PER_SWAP:
+            raise SystemExit(f"FAIL edit: {total} launches for the sweep, want "
+                             f"{PMC_LAUNCHES_PER_SWAP}")
+    if _psnr(arrs[0], arrs[-1]) > 60:
+        raise SystemExit("FAIL edit: alpha 0 and alpha 1 give the same image")
+    log(f"[edit] ms per 1024^2 sweep of 4 (sweeps 1-2): "
+        f"{', '.join(f'{t:.1f}' for t in times[1:])}; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del editor
+    torch.cuda.empty_cache()
+    out = {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        editor = Editor(_edit_opts(256, 14), device=dev, seed=1)
+        out[dev] = [np.asarray(i) for i in editor.interpolation_sweep(EDIT_ALPHAS)]
+        log(f"[edit] 256^2 sweep on {dev}: {time.perf_counter() - t0:.1f} s "
+            "(build included)")
+        del editor
+    psnr = min(_psnr(a, b) for a, b in zip(out["cuda"], out["cpu"]))
+    log(f"[edit] 256^2 sweep cuda vs cpu: uint8 PSNR {psnr:.2f} dB (worst of 4)")
+    if psnr < 40.0:
+        raise SystemExit(f"FAIL edit: PSNR {psnr:.2f} dB < 40")
+
+
+def _optim_opts(out_size, n_styles, **kw):
+    """The inversion's options (the dataset is given, nothing is saved)."""
+    return _opts(out_size, n_styles, lr=0.01, opt_name="adam",
+                 optimize_noise=False, lpips_lambda=0.8, id_lambda=0.1,
+                 id_loss_multiscale=True, face_parsing_lambda=0.1,
+                 l2_lambda=1.0, ir_se50_path=None, face_parsing_model_path=None,
+                 **kw)
+
+
+def _timed_invertion(opt, sample):
+    """``opt.invertion(sample)`` with each step's end marked (the card
+    synchronised) through the optimizer's update; returns (losses, ms per
+    step from the second on, launches per step's forward)."""
+    from e4s_tpu_torch.pipelines import optimization
+
+    marks = []
+    step = optimization.OptaxRule.step
+
+    def marked(rule, params, grads):
+        step(rule, params, grads)
+        torch.cuda.synchronize()
+        marks.append((time.perf_counter(), _launch_counts()[0]))
+
+    optimization.OptaxRule.step = marked
+    try:
+        _reset_launches()
+        _, recon, losses = opt.invertion(sample, save=False)
+    finally:
+        optimization.OptaxRule.step = step
+    if not torch.isfinite(recon).all():
+        raise SystemExit("FAIL inversion: non-finite face")
+    ms = [(b[0] - a[0]) * 1e3 for a, b in zip(marks, marks[1:])]
+    per_step = [b[1] - a[1] for a, b in zip(marks, marks[1:])]
+    return losses, ms, per_step
+
+
+def phase_inversion():
+    """5 inversion steps at 1024^2 in f32 and in bf16; then 3 steps at 256^2
+    on the card and on the CPU in f32, the losses within 1e-3 relative."""
+    from e4s_tpu_torch.datasets.dataset import SyntheticFaceDataset
+    from e4s_tpu_torch.pipelines.optimization import Optimizer
+
+    for bf16 in (False, True):
+        dt = "bf16" if bf16 else "f32"
+        t0 = time.perf_counter()
+        opt = Optimizer(_optim_opts(1024, 18, W_steps=5, bf16=bf16),
+                        dataset=SyntheticFaceDataset(size=1024), device="cuda", seed=0)
+        torch.cuda.synchronize()
+        log(f"[invert] Optimizer 1024^2 {dt} built in {time.perf_counter() - t0:.1f} s")
+        torch.cuda.reset_peak_memory_stats()
+        losses, ms, per_step = _timed_invertion(opt, 1)
+        total, n_bf16 = _launch_counts()
+        log(f"[invert] 1024^2 {dt} losses per step: "
+            f"{', '.join(f'{v:.6f}' for v in losses)}")
+        log(f"[invert] 1024^2 {dt} ms per step (steps 2-5): "
+            f"{', '.join(f'{t:.1f}' for t in ms)}; launches per step's forward "
+            f"{per_step}; launches in all {total} (bf16 {n_bf16}); peak device "
+            f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        if len(losses) != 5 or not np.isfinite(losses).all():
+            raise SystemExit(f"FAIL inversion: {dt} losses {losses}")
+        if any(n != PMC_LAUNCHES_PER_SWAP for n in per_step):
+            raise SystemExit(f"FAIL inversion: {dt} launches per step {per_step}")
+        if (n_bf16 == total) != bf16 or total != PMC_LAUNCHES_PER_SWAP * 7:
+            raise SystemExit(f"FAIL inversion: {dt} {total} launches ({n_bf16} bf16), "
+                             f"want {PMC_LAUNCHES_PER_SWAP * 7} (2 reconstructions, "
+                             "5 steps)")
+        del opt
+        torch.cuda.empty_cache()
+    out = {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        opt = Optimizer(_optim_opts(256, 14, W_steps=3),
+                        dataset=SyntheticFaceDataset(size=256), device=dev, seed=1)
+        out[dev] = opt.invertion(1, save=False)[2]
+        log(f"[invert] 256^2 f32 on {dev}: losses "
+            f"{', '.join(f'{v:.6f}' for v in out[dev])} in "
+            f"{time.perf_counter() - t0:.1f} s (build included)")
+        del opt
+    rel = float(np.max(np.abs(out["cuda"] - out["cpu"]) / np.abs(out["cpu"])))
+    log(f"[invert] 256^2 losses cuda vs cpu: max relative difference {rel:.3e} "
+        "(limit 1e-3)")
+    if not np.isfinite(out["cuda"]).all() or rel > 1e-3:
+        raise SystemExit(f"FAIL inversion: card vs CPU losses {rel:.3e} apart")
+
+
+def _per_swap_line(rows, launches, B=1, dtype=torch.float32):
     def total(key):
         return sum(r[key] for r in rows)
 
-    log(f"[time] B={B} patch_mod_conv3 per swap pass ({launches} launches): "
-        f"kernel {total('ms'):.4f} ms, plain {total('plain_ms'):.4f} ms, "
-        f"f32 bound {total('f32_ms'):.4f} ms, 3xTF32 bound "
-        f"{total('bound_ms'):.4f} ms (sums of per-launch bounds; share "
-        f"{total('bound_ms') / total('ms'):.3f})")
+    bounds = (f"bf16 bound {total('bound_ms'):.4f} ms" if dtype == torch.bfloat16
+              else f"f32 bound {total('f32_ms'):.4f} ms, 3xTF32 bound "
+                   f"{total('bound_ms'):.4f} ms")
+    log(f"[time] {_dt(dtype)} B={B} patch_mod_conv3 per swap pass ({launches} "
+        f"launches): kernel {total('ms'):.4f} ms, plain "
+        f"{total('plain_ms'):.4f} ms, {bounds} (sums of per-launch bounds; "
+        f"share {total('bound_ms') / total('ms'):.3f})")
     return total
 
 
@@ -510,18 +778,35 @@ def main():
     worst = max(worst, phase_kernel_vs_plain(B=8))
     _per_swap_line(phase_kernel_times(B=8), PMC_LAUNCHES_PER_SWAP, B=8)
     phase_new_paths_vs_plain()
+    bf16 = torch.bfloat16
+    worst16 = max(phase_kernel_vs_plain(1, bf16), phase_kernel_vs_plain(8, bf16))
+    rows16 = phase_kernel_times(1, bf16)
+    per_swap16 = _per_swap_line(rows16, PMC_LAUNCHES_PER_SWAP, 1, bf16)
+    _per_swap_line(phase_kernel_times(8, bf16), PMC_LAUNCHES_PER_SWAP, 8, bf16)
+    t_ops16 = sum(r["flops"] for r in rows16) / PEAK_BF16_FLOPS * 1e3
+    t_bytes16 = sum(r["bytes"] for r in rows16) / PEAK_BYTES * 1e3
+    launches16 = phase_bf16_swaps()
+    phase_bf16_vs_cpu_and_f32()
+    phase_edit_sweep()
+    phase_inversion()
+    row = dict(route="cuda", source="e4s_tpu_torch/csrc/patch_mod_conv3.cu",
+               replaces="e4s_tpu/ops/pallas/modconv_tpu.py:39", library_ms=None)
     summary = {"kernels": [{
-        "name": "patch_mod_conv3",
-        "route": "cuda",
-        "source": "e4s_tpu_torch/csrc/patch_mod_conv3.cu",
-        "replaces": "e4s_tpu/ops/pallas/modconv_tpu.py:39",
+        "name": "patch_mod_conv3", **row,
         "launches": launches,
         "max_abs_err": worst,
         "ms": per_swap("ms"),
         "plain_ms": per_swap("plain_ms"),
         "bound_ms": per_swap("bound_ms"),
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-        "library_ms": None,
+    }, {
+        "name": "patch_mod_conv3_bf16", **row,
+        "launches": launches16,
+        "max_abs_err": worst16,
+        "ms": per_swap16("ms"),
+        "plain_ms": per_swap16("plain_ms"),
+        "bound_ms": per_swap16("bound_ms"),
+        "bound_by": "operations" if t_ops16 >= t_bytes16 else "bytes",
     }]}
     log(json.dumps(summary))
     print(json.dumps({"ok": True, "device": {

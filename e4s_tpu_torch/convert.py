@@ -2,7 +2,9 @@
 
 The inverse of the JAX package's checkpoint converters
 (``e4s_tpu/utils/torch_convert.py``: ``convert_net3_state_dict``,
-``convert_bisenet``, ``convert_segnext``). The keys are the reference checkpoints', so the result
+``convert_bisenet``, ``convert_segnext``, ``convert_irse50``,
+``convert_unet``, ``convert_alexnet_features``, ``convert_vgg16_features``,
+``convert_lpips_lin``). The keys are the reference checkpoints', so the result
 loads into the port's modules with ``load_state_dict`` and converts back to
 the same JAX tree. Leaves are read with ``np.asarray``; JAX is not needed.
 """
@@ -202,3 +204,98 @@ def segnext_variant_from_sd(sd):
         if tuple(cfg["embed_dims"]) == dims and tuple(cfg["depths"]) == depths:
             return name
     raise ValueError(f"no SegNeXt variant has widths {dims} and depths {depths}")
+
+
+def _bn(out, key, params, stats):
+    """A frozen BatchNorm's entries: the affine weight and bias (identity
+    when the JAX module has none), running stats and a zero
+    ``num_batches_tracked``."""
+    n = np.asarray(stats["running_mean"]).shape[0]
+    out[f"{key}.weight"] = _t(params["weight"]) if "weight" in params else torch.ones(n)
+    out[f"{key}.bias"] = _t(params["bias"]) if "bias" in params else torch.zeros(n)
+    out[f"{key}.running_mean"] = _t(stats["running_mean"])
+    out[f"{key}.running_var"] = _t(stats["running_var"])
+    out[f"{key}.num_batches_tracked"] = torch.zeros((), dtype=torch.long)
+
+
+def irse50_state_dict_from_jax(variables):
+    """{"params", "batch_stats"} of the JAX ``IRSE50Backbone`` -> the
+    ``model_ir_se50.pth`` state_dict that the port's ``IRSE50Backbone``
+    loads; the inverse of ``convert_irse50``. The JAX embedding BatchNorm
+    has no affine part: its weight and bias become 1 and 0."""
+    p, st = variables["params"], variables["batch_stats"]
+    out = {"input_layer.0.weight": _t(p["input_conv"]["weight"]),
+           "input_layer.2.weight": _t(p["input_prelu"]["weight"])}
+    _bn(out, "input_layer.1", p.get("input_bn", {}), st["input_bn"])
+    i = 0
+    while f"body_{i}" in p:
+        b, bs, q = p[f"body_{i}"], st[f"body_{i}"], f"body.{i}"
+        if "shortcut_conv" in b:
+            out[f"{q}.shortcut_layer.0.weight"] = _t(b["shortcut_conv"]["weight"])
+            _bn(out, f"{q}.shortcut_layer.1", b["shortcut_norm"], bs["shortcut_norm"])
+        _bn(out, f"{q}.res_layer.0", b["res_norm1"], bs["res_norm1"])
+        out[f"{q}.res_layer.1.weight"] = _t(b["res_conv1"]["weight"])
+        out[f"{q}.res_layer.2.weight"] = _t(b["res_prelu"]["weight"])
+        out[f"{q}.res_layer.3.weight"] = _t(b["res_conv2"]["weight"])
+        _bn(out, f"{q}.res_layer.4", b["res_norm2"], bs["res_norm2"])
+        out[f"{q}.res_layer.5.fc1.weight"] = _t(b["res_se"]["fc1"]["weight"])
+        out[f"{q}.res_layer.5.fc2.weight"] = _t(b["res_se"]["fc2"]["weight"])
+        i += 1
+    _bn(out, "output_layer.0", p["output_bn"], st["output_bn"])
+    out["output_layer.3.weight"] = _t(p["output_linear_weight"])
+    out["output_layer.3.bias"] = _t(p["output_linear_bias"])
+    _bn(out, "output_layer.4", p.get("output_bn1d", {}), st["output_bn1d"])
+    return out
+
+
+def unet_state_dict_from_jax(variables):
+    """{"params", "batch_stats"} of the JAX ``ParsingUNet`` -> the parsing
+    U-Net's ``model.pth`` state_dict; the inverse of ``convert_unet``."""
+    p, st = variables["params"], variables["batch_stats"]
+    out = {}
+
+    def unet_conv2(pp, ss, key):
+        for idx in (1, 2):
+            out[f"{key}.conv{idx}.0.weight"] = _t(pp[f"conv{idx}"]["weight"])
+            out[f"{key}.conv{idx}.0.bias"] = _t(pp[f"conv{idx}"]["bias"])
+            _bn(out, f"{key}.conv{idx}.1", pp[f"bn{idx}"], ss[f"bn{idx}"])
+
+    for name in ("conv1", "conv2", "conv3", "conv4", "center"):
+        unet_conv2(p[name], st[name], name)
+    for name in ("up_concat4", "up_concat3", "up_concat2", "up_concat1"):
+        out[f"{name}.up.weight"] = _t(p[name]["up_weight"])
+        out[f"{name}.up.bias"] = _t(p[name]["up_bias"])
+        unet_conv2(p[name]["conv"], st[name]["conv"], f"{name}.conv")
+    out["final.weight"] = _t(p["final"]["weight"])
+    out["final.bias"] = _t(p["final"]["bias"])
+    return out
+
+
+# torchvision ``features`` positions of the convs of each trunk
+ALEX_CONV_IDS = (0, 3, 6, 8, 10)
+VGG16_CONV_IDS = (0, 2, 5, 7, 10, 12, 14, 17, 19, 21, 24, 26, 28)
+
+
+def features_state_dict_from_jax(params, net_type="alex"):
+    """The JAX ``AlexNetFeatures`` / ``VGG16Features`` params (``conv{i}``)
+    -> torchvision's ``features`` state_dict (``{pos}.weight``); the
+    inverse of ``convert_alexnet_features`` / ``convert_vgg16_features``."""
+    ids = ALEX_CONV_IDS if net_type == "alex" else VGG16_CONV_IDS
+    out = {}
+    for i, pos in enumerate(ids):
+        out[f"{pos}.weight"] = _t(params[f"conv{i}"]["weight"])
+        out[f"{pos}.bias"] = _t(params[f"conv{i}"]["bias"])
+    return out
+
+
+def lpips_state_dict_from_jax(params, net_type="alex"):
+    """The JAX ``LPIPS`` params -> the port's ``LPIPS`` state_dict: the
+    trunk under ``net.`` and the heads ``lin_i`` as ``lin.{i}.1.weight``
+    (the LPIPS release's layout, inverse of ``convert_lpips_lin``)."""
+    out = {f"net.{k}": v
+           for k, v in features_state_dict_from_jax(params["net"], net_type).items()}
+    i = 0
+    while f"lin_{i}" in params:
+        out[f"lin.{i}.1.weight"] = _t(params[f"lin_{i}"])
+        i += 1
+    return out

@@ -1,7 +1,8 @@
-"""RGI texture encoder FSEncoder_PSP and its IR-SE blocks (counterpart of
-``e4s_tpu/models/encoders.py``; the ID-loss IR-SE50 backbone is not ported
-yet). Module trees follow the reference's ``nn.Sequential`` indices, so the
-state_dict keys are the reference's (``body.{i}.res_layer.{1,2,3,5}``...).
+"""RGI texture encoder FSEncoder_PSP, the ID loss's IR-SE50 backbone and
+their IR-SE blocks (counterpart of ``e4s_tpu/models/encoders.py``). Module
+trees follow the reference's ``nn.Sequential`` indices, so the state_dict
+keys are the reference's (``body.{i}.res_layer.{0..5}``, ``output_layer.4``
+...) and ``model_ir_se50.pth`` loads with ``load_state_dict``.
 """
 
 from __future__ import annotations
@@ -27,8 +28,8 @@ class InstanceNorm(nn.Module):
 
 
 class FrozenBatchNorm(nn.Module):
-    """BatchNorm2d that always uses its running statistics (every network
-    with BatchNorm on the swap path is frozen). Same keys as
+    """BatchNorm (2-D or 1-D input) that always uses its running statistics
+    (every network with BatchNorm in the port is frozen). Same keys as
     ``nn.BatchNorm2d``: weight, bias, running_mean, running_var,
     num_batches_tracked."""
 
@@ -82,24 +83,29 @@ class _Subsample(nn.Module):
 
 
 class BottleneckIRSE(nn.Module):
-    """IR-SE residual unit with InstanceNorm (the RGI encoder's variant;
-    the BatchNorm variant of the ID-loss backbone is not ported yet)."""
+    """IR-SE residual unit: ``norm`` "in" is the RGI encoder's variant
+    (InstanceNorm, no parameters), "bn" the ID-loss backbone's (frozen
+    BatchNorm)."""
 
-    def __init__(self, in_channel, depth, stride):
+    def __init__(self, in_channel, depth, stride, norm="in"):
         super().__init__()
+
+        def mk_norm(channel):
+            return InstanceNorm() if norm == "in" else FrozenBatchNorm(channel)
+
         if in_channel == depth:
             self.shortcut_layer = _Subsample(stride)
         else:
             self.shortcut_layer = nn.Sequential(
                 nn.Conv2d(in_channel, depth, 1, stride, bias=False),
-                InstanceNorm(),
+                mk_norm(depth),
             )
         self.res_layer = nn.Sequential(
-            InstanceNorm(),
+            mk_norm(in_channel),
             nn.Conv2d(in_channel, depth, 3, 1, 1, bias=False),
             PReLU(depth),
             nn.Conv2d(depth, depth, 3, stride, 1, bias=False),
-            InstanceNorm(),
+            mk_norm(depth),
             SEModule(depth, 16),
         )
 
@@ -145,3 +151,51 @@ class FSEncoderPSP(nn.Module):
             [masked_region_mean(t, segmap) for t in taps], dim=-1
         )
         return codes, torch.zeros_like(x)
+
+
+def irse50_blocks():
+    """(in, depth, stride) per unit of the 50-layer IR-SE trunk."""
+    blocks = []
+    for in_c, depth, n in ((64, 64, 3), (64, 128, 4), (128, 256, 14),
+                           (256, 512, 3)):
+        blocks.append((in_c, depth, 2))
+        blocks += [(depth, depth, 1)] * (n - 1)
+    return blocks
+
+
+def l2_normalize(v):
+    """v / ||v|| along dim 1."""
+    return v / torch.linalg.vector_norm(v, dim=1, keepdim=True)
+
+
+class IRSE50Backbone(nn.Module):
+    """ArcFace IR-SE50 recognition network at 112^2 (frozen; the ID loss).
+    forward(x [B,3,112,112], multi_scale) -> l2-normalised features: the
+    flattened outputs of units 2, 6, 20 and 23 and the 512-d embedding with
+    ``multi_scale``, else the embedding alone. Keys are the reference's
+    (``input_layer.{0,1,2}``, ``body.{i}``, ``output_layer.{0,3,4}``); the
+    embedding's BatchNorm1d (``output_layer.4``) carries an affine weight
+    and bias as in the reference checkpoint."""
+
+    TAPS = (2, 6, 20, 23)
+
+    def __init__(self):
+        super().__init__()
+        self.input_layer = nn.Sequential(
+            nn.Conv2d(3, 64, 3, 1, 1, bias=False), FrozenBatchNorm(64), PReLU(64))
+        self.body = nn.Sequential(*[
+            BottleneckIRSE(i, d, s, norm="bn") for i, d, s in irse50_blocks()])
+        # BatchNorm2d, Dropout (inactive), Flatten, Linear, BatchNorm1d
+        self.output_layer = nn.Sequential(
+            FrozenBatchNorm(512), nn.Identity(), nn.Flatten(),
+            nn.Linear(512 * 7 * 7, 512), FrozenBatchNorm(512))
+
+    def forward(self, x, multi_scale: bool = True):
+        x = self.input_layer(x)
+        feats = []
+        for i, block in enumerate(self.body):
+            x = block(x)
+            if multi_scale and i in self.TAPS:
+                feats.append(x.reshape(x.shape[0], -1))
+        feats.append(self.output_layer(x))
+        return [l2_normalize(f) for f in feats]

@@ -101,12 +101,13 @@ def init_module_(root: nn.Module, generator: torch.Generator) -> nn.Module:
     """Initialise every parameter and buffer of ``root`` from ``generator``,
     in module order, so a seed gives the same weights on every device (draw
     on the CPU, then move). Modules of this package define
-    ``reset_parameters(generator)``; ``nn.Conv2d``, ``nn.PReLU``,
-    ``nn.LayerNorm`` and ``nn.GroupNorm`` get PyTorch's own defaults."""
+    ``reset_parameters(generator)``; ``nn.Conv2d``, ``nn.ConvTranspose2d``,
+    ``nn.Linear``, ``nn.PReLU``, ``nn.LayerNorm`` and ``nn.GroupNorm`` get
+    PyTorch's own defaults (uniform in +-1/sqrt(fan_in) for the first
+    three, as PyTorch computes fan_in from the weight's dims 1 and up)."""
     for m in root.modules():
-        if isinstance(m, nn.Conv2d):
-            fan_in = m.in_channels // m.groups * m.kernel_size[0] * m.kernel_size[1]
-            bound = 1.0 / math.sqrt(fan_in)
+        if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
+            bound = 1.0 / math.sqrt(m.weight[0].numel())
             with torch.no_grad():
                 m.weight.uniform_(-bound, bound, generator=generator)
                 if m.bias is not None:

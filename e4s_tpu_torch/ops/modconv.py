@@ -103,14 +103,17 @@ def _region_maps(seg, s, d, dtype):
 def _composite_up_kernel(w_scaled, bk):
     """E[o,i,c] = sum_s bk[s] * w[o,i,c-s] (full 2-D convolution of the 3x3
     weight with the 4x4 blur): the 6x6 kernel of blur o conv_transpose2,
-    computed as 16 exact shifted adds."""
+    computed as 16 shifted adds in f32 and rounded to the weight's dtype
+    once, as the JAX package's one f32-accumulated convolution does for a
+    bf16 weight."""
     Co, Ci, kh, kw = w_scaled.shape
     bh, bw = bk.shape
-    E = w_scaled.new_zeros((Co, Ci, kh + bh - 1, kw + bw - 1))
+    w32 = w_scaled.float()
+    E = w32.new_zeros((Co, Ci, kh + bh - 1, kw + bw - 1))
     for sy in range(bh):
         for sx in range(bw):
-            E[:, :, sy:sy + kh, sx:sx + kw] += float(bk[sy, sx]) * w_scaled
-    return E
+            E[:, :, sy:sy + kh, sx:sx + kw] += float(bk[sy, sx]) * w32
+    return E.to(w_scaled.dtype)
 
 
 def masked_conv_weights(w_scaled, up=False, blur_kernel=(1, 3, 3, 1)):

@@ -15,19 +15,24 @@ with smap/dmap read at that pixel of the [B,2H,2W,*] maps
 Replaces the Pallas TPU kernel ``e4s_tpu/ops/pallas/modconv_tpu.py``
 (``_kernel``, launched by ``_run`` from ``patch_mod_conv3_nhwc``).
 
+Two instantiations, chosen by the inputs' dtype: f32 in and out, and bf16
+in and out, the Pallas kernel's bf16 form (x*smap rounded to bf16,
+accumulated in f32, multiplied by dmap in f32, rounded to bf16 once). Mixed
+dtypes are refused, never cast.
+
 On an H100 the large layers are bound by operations and the small ones
 (4^2..16^2) by the single read of the 512x512x9 weight. The kernel in
-``csrc/patch_mod_conv3.cu`` is an implicit GEMM on the tensor cores in the
-3xTF32 split (near-f32 accuracy), fed by TMA bulk copies and cp.async; the
-small layers split K over the input channels to fill the card, and an
-up-conv is one launch over the four phases. Its source note gives the
-tiling.
+``csrc/patch_mod_conv3.cu`` is an implicit GEMM on the tensor cores (f32 in
+the 3xTF32 split for near-f32 accuracy, bf16 with one wgmma per tap), fed by
+TMA bulk copies and cp.async; the small layers split K over the input
+channels to fill the card, and an up-conv is one launch over the four
+phases. Its source note gives the tiling.
 
-The kernel takes the weight packed into per-step tiles and split into TF32
-halves (``pack_weight``); the model packs each weight once and keeps it
-(``models/stylegan2.py::ModulatedConv2d``). It is built at first use with
-``nvcc`` into a shared library with a plain C interface (loaded with
-``ctypes``) under ``e4s_tpu_torch/build/``.
+The kernel takes the weight packed into per-step tiles (``pack_weight``;
+for f32 also split into TF32 halves); the model packs each weight once and
+keeps it (``models/stylegan2.py::ModulatedConv2d``). It is built at first
+use with ``nvcc`` into a shared library with a plain C interface (loaded
+with ``ctypes``) under ``e4s_tpu_torch/build/``.
 """
 
 from __future__ import annotations
@@ -51,7 +56,12 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-TILE_N, TILE_K = 128, 8  # output channels and input channels of a K step
+TILE_N = 128  # output channels of a block
+# input channels of a K step (one wgmma depth: 32 bytes of each operand row)
+TILE_K = {torch.float32: 8, torch.bfloat16: 16}
+# the C entry of each instantiation
+_ENTRY = {torch.float32: "patch_mod_conv3_f32",
+          torch.bfloat16: "patch_mod_conv3_bf16"}
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -59,7 +69,10 @@ _lib_lock = threading.Lock()
 
 def patch_mod_conv3_nhwc_plain(x, w, smap, dmap):
     """The nine-tap einsum, as the JAX package's XLA path computes it
-    (``e4s_tpu/ops/modconv.py::_patch_mod_conv_nhwc_xla``)."""
+    (``e4s_tpu/ops/modconv.py::_patch_mod_conv_nhwc_xla``): smap * x in x's
+    dtype (for bf16 the product rounded once, as the kernel forms it), the
+    taps accumulated in f32, dmap applied in f32, one rounding to x's
+    dtype."""
     B, H, W, Ci = x.shape
     Co, _, kh, kw = w.shape
     ph, pw = kh // 2, kw // 2
@@ -101,40 +114,52 @@ def _round_tf32(t):
     return ((bits + 0x1000) & -0x2000).view(torch.float32)
 
 
-def packed_shape(P, Co, Ci):
-    """Shape of ``pack_weight``'s result for P phases."""
-    return (P, -(-Ci // TILE_K), -(-Co // TILE_N), 2, 9, TILE_N // 8, 2, 8, 4)
+def packed_shape(P, Co, Ci, dtype=torch.float32):
+    """Shape of ``pack_weight``'s result for P phases of a ``dtype`` weight."""
+    k = TILE_K[dtype]
+    nk, nco = -(-Ci // k), -(-Co // TILE_N)
+    if dtype == torch.bfloat16:
+        return (P, nk, nco, 9, TILE_N // 8, 2, 8, 8)
+    return (P, nk, nco, 2, 9, TILE_N // 8, 2, 8, 4)
 
 
 def pack_weight(w):
     """OIHW [Co,Ci,3,3] (stride-1) or [4,Co,Ci,3,3] (up phases) -> the
-    kernel's tiles: [P, K step (8 input channels), 128-channel block,
-    TF32 half, tap, n // 8, k // 4, n % 8, k % 4], zero-padded to whole
-    tiles. A block's K step is one contiguous tile in the K-major
-    core-matrix layout that wgmma reads (8 rows x 16 bytes per core
-    matrix). The halves are the 3xTF32 split of the weight, made once here
-    instead of in every block: hi = tf32(w), lo = tf32(w - hi)."""
+    kernel's tiles, zero-padded to whole tiles: per phase, K step and
+    128-channel block one contiguous tile in the K-major core-matrix layout
+    that wgmma reads (8 rows x 16 bytes per core matrix).
+
+    f32: [P, K step (8 input channels), block, TF32 half, tap, n // 8,
+    k // 4, n % 8, k % 4]. The halves are the 3xTF32 split of the weight,
+    made once here instead of in every block: hi = tf32(w),
+    lo = tf32(w - hi). bf16: [P, K step (16 input channels), block, tap,
+    n // 8, k // 8, n % 8, k % 8], the weight's own values."""
+    if w.dtype not in TILE_K:
+        raise TypeError(f"the kernel takes float32 or bfloat16, not {w.dtype}")
     wp = w if w.dim() == 5 else w[None]
     P, Co, Ci = wp.shape[:3]
-    _, nk, nco = packed_shape(P, Co, Ci)[:3]
+    k = TILE_K[w.dtype]
+    _, nk, nco = packed_shape(P, Co, Ci, w.dtype)[:3]
     w9 = wp.permute(0, 3, 4, 1, 2).reshape(P, 9, Co, Ci)
-    w9 = F.pad(w9, (0, nk * TILE_K - Ci, 0, nco * TILE_N - Co))
-    t = w9.reshape(P, 9, nco, TILE_N // 8, 8, nk, 2, 4).permute(
-        0, 5, 2, 1, 3, 6, 4, 7).float()
+    w9 = F.pad(w9, (0, nk * k - Ci, 0, nco * TILE_N - Co))
+    t = w9.reshape(P, 9, nco, TILE_N // 8, 8, nk, 2, k // 2).permute(
+        0, 5, 2, 1, 3, 6, 4, 7)
+    if w.dtype == torch.bfloat16:
+        return t.contiguous()
     hi = _round_tf32(t)
     return torch.stack([hi, _round_tf32(t - hi)], dim=3)
 
 
-def plan(B, H, W, Ci, Co, phases, sms=132):
+def plan(B, H, W, Ci, Co, phases, sms=132, tile_k=8):
     """(tile rows, tile columns, K splits) for one launch. 16x16-pixel tiles
     from 64^2 up (each weight tile feeds 256 pixels), 8x16 where W >= 16,
     8x8 below; splits double while the grid stays within one wave of
     ``sms`` blocks (one block fits an SM) and each split keeps >= 4 K
-    steps of 8 channels (>= 2 at the last doubling)."""
+    steps of ``tile_k`` channels (>= 2 at the last doubling)."""
     th, tw = (16, 16) if H * W >= 64 * 64 else (8, 16) if W >= 16 else (8, 8)
     blocks = (B * phases * -(-H // th) * -(-W // tw)
               * -(-Co // TILE_N))
-    steps = -(-Ci // TILE_K)
+    steps = -(-Ci // tile_k)
     splits = 1
     while blocks * splits * 2 <= sms and steps >= 4 * splits:
         splits *= 2
@@ -193,20 +218,22 @@ def _load():
         if _lib is None:
             path, _ = build()
             lib = ctypes.CDLL(str(path))
-            fn = lib.patch_mod_conv3_f32
-            fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [
-                ctypes.c_void_p
-            ]
-            fn.restype = ctypes.c_int
+            for name in _ENTRY.values():
+                fn = getattr(lib, name)
+                fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [
+                    ctypes.c_void_p
+                ]
+                fn.restype = ctypes.c_int
             _lib = lib
     return _lib
 
 
-def _check(name, t, shape, device):
+def _check(name, t, shape, device, dtype):
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, x on {device}")
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name} must be float32, got {t.dtype}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} is {t.dtype}, x {dtype}: the kernel takes "
+                        "one dtype and casts nothing")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name} has shape {tuple(t.shape)}, want {shape}")
     if not t.is_contiguous():
@@ -214,45 +241,54 @@ def _check(name, t, shape, device):
 
 
 def _launch(x, w, smap, dmap, packed=None, up=False):
-    """One kernel launch (plus the split-K sum where the plan splits).
-    ``w``: [Co,Ci,3,3], or [4,Co,Ci,3,3] phase weights for ``up``;
+    """One kernel launch (plus the split-K sum where the plan splits), of
+    the instantiation of x's dtype (float32 or bfloat16; every input has
+    it). ``w``: [Co,Ci,3,3], or [4,Co,Ci,3,3] phase weights for ``up``;
     ``packed``: ``pack_weight(w)``, packed here when None."""
     B, H, W, Ci = x.shape
     P, s = (4, 2) if up else (1, 1)
     Co = w.shape[-4]
-    dev = x.device
-    _check("x", x, (B, H, W, Ci), dev)
-    _check("smap", smap, (B, s * H, s * W, Ci), dev)
+    dev, dt = x.device, x.dtype
+    if dt not in _ENTRY:
+        raise TypeError(f"the kernel takes float32 or bfloat16, not {dt}")
+    _check("x", x, (B, H, W, Ci), dev, dt)
+    _check("smap", smap, (B, s * H, s * W, Ci), dev, dt)
     if dmap is not None:
-        _check("dmap", dmap, (B, s * H, s * W, Co), dev)
+        _check("dmap", dmap, (B, s * H, s * W, Co), dev, dt)
     want_w = (4, Co, Ci, 3, 3) if up else (Co, Ci, 3, 3)
     if tuple(w.shape) != want_w:
         raise ValueError(f"w has shape {tuple(w.shape)}, want {want_w}")
+    if w.dtype != dt:
+        raise TypeError(f"w is {w.dtype}, x {dt}: the kernel casts nothing")
     if packed is None:
         packed = pack_weight(w)
-    _check("packed weight", packed, packed_shape(P, Co, Ci), dev)
-    if Ci % 4:
-        raise ValueError(f"Ci={Ci}: the kernel takes a multiple of 4")
+    _check("packed weight", packed, packed_shape(P, Co, Ci, dt), dev, dt)
+    chunk = 16 // x.element_size()
+    if Ci % chunk:
+        raise ValueError(f"Ci={Ci}: the {dt} kernel takes a multiple of "
+                         f"{chunk} (16-byte copies)")
     if dev.type != "cuda":
         raise ValueError(f"the kernel runs on a CUDA device, not {dev}")
     lib = _load()
-    th, tw, splits = plan(B, H, W, Ci, Co, P, _sm_count(dev.index))
-    out = torch.empty((B, s * H, s * W, Co), dtype=torch.float32, device=dev)
+    th, tw, splits = plan(B, H, W, Ci, Co, P, _sm_count(dev.index), TILE_K[dt])
+    out = torch.empty((B, s * H, s * W, Co), dtype=dt, device=dev)
     part = None
     if splits > 1:
         part = torch.empty((splits, *out.shape), dtype=torch.float32,
                            device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.patch_mod_conv3_f32(
+        err = getattr(lib, _ENTRY[dt])(
             x.data_ptr(), packed.data_ptr(), smap.data_ptr(),
             None if dmap is None else dmap.data_ptr(), out.data_ptr(),
             None if part is None else part.data_ptr(),
             B, H, W, Ci, Co, int(up), th, tw, splits, stream,
         )
     if err != 0:
-        raise RuntimeError(f"patch_mod_conv3_f32 launch failed: cudaError {err}")
+        raise RuntimeError(f"{_ENTRY[dt]} launch failed: cudaError {err}")
     patch_mod_conv3_nhwc.launches += 1
+    if dt == torch.bfloat16:
+        patch_mod_conv3_nhwc.launches_bf16 += 1
     return out
 
 
@@ -305,6 +341,9 @@ def patch_mod_conv3_up_nhwc(x, wp, smap, dmap, packed=None):
     return _PatchModConv3.apply(x, wp, smap, dmap, packed, True)
 
 
-# Kernel launches since the last reset, one per call of either entry; a run
-# sets it to 0 before the path it wants to account for and reads it after.
+# Kernel launches since the last reset, one per call of either entry, of
+# either instantiation (``launches``) and of the bf16 one alone
+# (``launches_bf16``); a run sets them to 0 before the path it wants to
+# account for and reads them after.
 patch_mod_conv3_nhwc.launches = 0
+patch_mod_conv3_nhwc.launches_bf16 = 0

@@ -6,7 +6,8 @@ Left out, so that passing one is an error rather than a silent no-op:
 ``--erode_radius``, ``--learn_in_w`` and ``--output_size``, which nothing
 in either package's swap reads (the stitch's dilation is fixed at 5), and
 ``--channels_last``, a TPU layout switch (the port has one layout).
-``--bf16`` is accepted and refused: bf16 is not ported yet.
+``--bf16`` runs Net3 in bfloat16 (the masked convs in the kernel's bf16
+form), as the JAX package's flag does.
 """
 
 from argparse import ArgumentParser
@@ -27,7 +28,8 @@ class SwapFacePipelineOptions:
         p.add_argument('--lap_bld', action='store_true',
                        help='Whether to use Laplacian multi-band blending')
         p.add_argument('--bf16', action='store_true',
-                       help='bfloat16 inference (not ported yet: refused)')
+                       help='bfloat16 Net3 (f32 demodulation, accumulation, parse '
+                            'and stitch)')
         p.add_argument('--device', type=str, default='cuda',
                        help='torch device to run on, e.g. cuda, cuda:1, cpu')
         # ================= Model =====================

@@ -10,8 +10,11 @@
   (3) after a crop, the inverse-perspective paste into the original frame.
 
 Re-enactment and restoration are not ported: the source face is used as it
-is (D = S), as the JAX package does when those models are absent. bf16 is
-not ported either.
+is (D = S), as the JAX package does when those models are absent. With
+``opts.bf16`` Net3 and latent_avg are bfloat16 (``model_io.cast_bf16``) and
+every path computes the swap in the dtype of latent_avg, the masked convs
+in the kernel's bf16 form; the parser, the stitch, the blend and the uint8
+quantisation stay f32.
 """
 
 from __future__ import annotations
@@ -49,8 +52,6 @@ class FaceSwapper:
     is none. ``opts``: the fields of ``options/swap_options.py``."""
 
     def __init__(self, opts, device="cuda", seed: int = 0):
-        if getattr(opts, "bf16", False):
-            raise NotImplementedError("bf16 is not ported yet")
         self.opts = opts
         self.device = resolve_device(device)
         self.net, self.latent_avg = load_net3(opts, device=self.device, seed=seed)
@@ -191,11 +192,12 @@ class FaceSwapper:
         if verbose_dir:
             self._save_verbose(verbose_dir, D_mask, T_mask, swapped_msk)
         target_t = self._tensor(T01 * 2 - 1)
+        dt = self.latent_avg.dtype
         face = self._swap_core(
-            self._tensor(S01 * 2 - 1), target_t, self._labels(D_mask[None]),
-            self._labels(T_mask[None]), self._labels(swapped_msk[None]),
-            self.latent_avg,
-        )
+            self._tensor(S01 * 2 - 1, dt), target_t.to(dt),
+            self._labels(D_mask[None]), self._labels(T_mask[None]),
+            self._labels(swapped_msk[None]), self.latent_avg,
+        ).float()
         label_t, hole_t = self._labels(swapped_msk[None]), self._labels(hole_map[None])
         if self.lap_bld:
             blended = lap_blend_stitch(face, self._tensor(T01) * 255.0,
@@ -250,10 +252,12 @@ class FaceSwapper:
         swapped, holes = zip(*(swap_head_mask(d, t) for d, t in zip(D_masks, T_masks)))
         swapped_msk, hole_map = np.stack(swapped), np.stack(holes)
         target_t = self._tensor(T01 * 2 - 1)
+        dt = self.latent_avg.dtype
         faces = self._swap_core(
-            self._tensor(S01 * 2 - 1), target_t, self._labels(D_masks),
-            self._labels(T_masks), self._labels(swapped_msk), self.latent_avg,
-        )
+            self._tensor(S01 * 2 - 1, dt), target_t.to(dt),
+            self._labels(D_masks), self._labels(T_masks),
+            self._labels(swapped_msk), self.latent_avg,
+        ).float()
         stitched = stitch_foreground(faces, target_t, self._labels(swapped_msk),
                                      self._labels(hole_map))
         return np.clip((stitched.cpu().numpy() + 1) / 2, 0, 1)

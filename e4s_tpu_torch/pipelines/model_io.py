@@ -67,11 +67,21 @@ def build_net(opts) -> Net3:
     )
 
 
+def cast_bf16(net, latent_avg):
+    """The JAX package's ``--bf16`` cast: every floating parameter and
+    buffer of ``net`` (in place) and ``latent_avg`` become bfloat16. The
+    pipelines take their compute dtype from ``latent_avg``; demodulation
+    and accumulation stay f32 inside the ops, and the face parser is not
+    cast. Returns (net, latent_avg)."""
+    return net.to(torch.bfloat16), latent_avg.to(torch.bfloat16)
+
+
 def load_net3(opts, checkpoint_path: Optional[str] = None, device="cuda",
               seed: int = 0):
     """Returns (net, latent_avg [n_styles, 512]) on ``device``. A reference
     checkpoint (``{"state_dict", "latent_avg"}``) loads when the file exists;
-    otherwise the weights are random from ``seed`` and latent_avg is 0."""
+    otherwise the weights are random from ``seed`` and latent_avg is 0.
+    With ``opts.bf16`` both are cast to bfloat16 (``cast_bf16``)."""
     device = resolve_device(device)
     checkpoint_path = checkpoint_path or getattr(opts, "checkpoint_path", None)
     latent_avg = torch.zeros((opts.n_styles, 512))
@@ -85,7 +95,10 @@ def load_net3(opts, checkpoint_path: Optional[str] = None, device="cuda",
         print(f"[e4s_tpu_torch] checkpoint {checkpoint_path} not found; "
               f"random weights from seed {seed}")
     net = materialise(lambda: build_net(opts), state_dict, seed, device)
-    return net, latent_avg.to(device)
+    latent_avg = latent_avg.to(device)
+    if getattr(opts, "bf16", False):
+        return cast_bf16(net, latent_avg)
+    return net, latent_avg
 
 
 def _load_pth(path):

@@ -210,6 +210,8 @@ def make_swap_e2e(net, parser_model, parser_size: int = 512,
     """Returns swap_e2e(src, tgt, latent_avg) -> (uint8 image [B,3,S,S],
     swapped 12-class labels, hole map, source labels, target labels).
     src/tgt: [B,3,S,S] uint8 (or float in [0,1]) on the models' device.
+    The encoder and the synthesis run in latent_avg's dtype; the parse, the
+    stitch and the quantisation in f32.
     ``taxonomy`` names the parser family ("ffhq19": BiSeNet, "celeba19":
     SegNeXt); ``lap_bld`` stitches with the Laplacian blend instead of the
     feathered paste."""
@@ -239,10 +241,11 @@ def make_swap_e2e(net, parser_model, parser_size: int = 512,
                                        swapped_label[:, None], hole_map[:, None])
             out_u8 = torch.clamp(blended, 0.0, 255.0).to(torch.uint8)
         else:
-            stitched = stitch_foreground(face, imgs[B:], swapped_label[:, None],
-                                         hole_map[:, None])
+            # in f32 whatever the compute dtype
+            stitched = stitch_foreground(face.float(), img01[B:] * 2.0 - 1.0,
+                                         swapped_label[:, None], hole_map[:, None])
             # truncating cast, as the reference's tensor2im
-            out01 = torch.clamp((stitched.float() + 1.0) / 2.0, 0.0, 1.0)
+            out01 = torch.clamp((stitched + 1.0) / 2.0, 0.0, 1.0)
             out_u8 = (out01 * 255.0).to(torch.uint8)
         return out_u8, swapped_label, hole_map, d_label, t_label
 

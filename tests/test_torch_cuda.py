@@ -7,7 +7,9 @@ conftest imports JAX, which a GPU machine for the port need not have):
     python -m pytest tests/test_torch_cuda.py -q -m cuda --noconftest
 
 Tolerance: max |kernel - plain| <= 1e-4 * max |plain| in f32 with TF32 off;
-the sums run over up to 9 * 512 terms in another order.
+the sums run over up to 9 * 512 terms in another order. In bf16 8e-3 *
+max |plain|: both sum in f32 and round once, so a result may land on the
+neighbouring bf16 value (one ulp is 2^-8 of the value).
 """
 
 import math
@@ -17,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from e4s_tpu_torch.models.stylegan2 import ModulatedConv2d
 from e4s_tpu_torch.ops import patch_modconv as pmc
 from e4s_tpu_torch.pipelines.face_swap import FaceSwapper
 
@@ -64,11 +67,11 @@ def _inputs(H, Ci, Co, dev, B=1, W=None, up=False):
     return x, w, smap, dmap
 
 
-def _check(got, want):
+def _check(got, want, tol=1e-4):
     torch.cuda.synchronize()
-    assert torch.isfinite(got).all()
-    err = (got - want).abs().max().item()
-    assert err <= 1e-4 * want.abs().max().item()
+    assert got.dtype == want.dtype and torch.isfinite(got).all()
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= tol * want.float().abs().max().item()
 
 
 @pytest.mark.cuda
@@ -189,3 +192,101 @@ def test_segnext_lap_bld_and_staged_paths_on_the_card_match_the_cpu(card):
     for a, b in zip(out["cuda"], out["cpu"]):
         mse = np.mean((a - b) ** 2)
         assert mse == 0 or 10 * np.log10(255.0 ** 2 / mse) >= 40.0
+
+
+# the 13 main-path launches: (input H=W, Ci, Co, up)
+STAGES = [(H, Ci, Co, False) for H, Ci, Co in MAIN_PATH_SHAPES
+          if (H, Ci, Co) not in ((64, 512, 256), (128, 256, 128))] + [
+    (H, Ci, Co, True) for H, Ci, Co in UP_SHAPES]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 8])
+@pytest.mark.parametrize("H,Ci,Co,up", STAGES)
+def test_patch_mod_conv3_bf16_kernel_matches_plain(card, H, Ci, Co, up, B):
+    """The bf16 instantiation at every main-path stage, B = 1 and 8."""
+    x, w, smap, dmap = (t.bfloat16() for t in _inputs(H, Ci, Co, card, B=B, up=up))
+    fn, plain = ((pmc.patch_mod_conv3_up_nhwc, pmc.patch_mod_conv3_up_nhwc_plain)
+                 if up else (pmc.patch_mod_conv3_nhwc, pmc.patch_mod_conv3_nhwc_plain))
+    before = pmc.patch_mod_conv3_nhwc.launches
+    got = fn(x, w, smap, dmap)
+    assert pmc.patch_mod_conv3_nhwc.launches == before + 1
+    assert got.dtype == torch.bfloat16
+    _check(got, plain(x, w, smap, dmap), tol=8e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,W,Ci,Co", [(2, 5, 7, 24, 40), (1, 3, 5, 200, 136),
+                                         (1, 70, 60, 24, 136)])
+def test_patch_mod_conv3_bf16_kernel_ragged_edges(card, B, H, W, Ci, Co):
+    """bf16 tiles that overhang H, W, Ci (a half K step) and Co; no dmap."""
+    for up in (False, True):
+        x, w, smap, _ = (t.bfloat16() for t in _inputs(H, Ci, Co, card, B=B, W=W, up=up))
+        fn, plain = ((pmc.patch_mod_conv3_up_nhwc, pmc.patch_mod_conv3_up_nhwc_plain)
+                     if up else (pmc.patch_mod_conv3_nhwc, pmc.patch_mod_conv3_nhwc_plain))
+        _check(fn(x, w, smap, None), plain(x, w, smap, None), tol=8e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("up", [False, True])
+def test_bf16_model_packs_bf16_tiles_and_rebuilds_them(card, up):
+    """A layer cast to bf16 packs bf16 tiles (the bf16 kernel's layout);
+    cast back, it packs f32 TF32-split tiles again; both run the kernel."""
+    torch.manual_seed(0)
+    layer = ModulatedConv2d(32, 16, 3, 64, upsample=up).to(card)
+    with torch.no_grad():
+        layer.weight.normal_()
+        layer.modulation.weight.normal_()
+        layer.modulation.bias.fill_(1.0)
+    layer.requires_grad_(False)
+    x = torch.randn(2, 32, 8, 8, device=card).contiguous(memory_format=torch.channels_last)
+    style = torch.randn(2, 12, 64, device=card)
+    lab = torch.randint(0, 12, (2, 16, 16), device=card)
+    mask = (lab[:, None] == torch.arange(12, device=card)[None, :, None, None]).float()
+    for dt in (torch.bfloat16, torch.float32):
+        layer.to(dt)
+        before = pmc.patch_mod_conv3_nhwc.launches
+        out = layer(x.to(dt), style.to(dt), mask.to(dt))
+        assert pmc.patch_mod_conv3_nhwc.launches == before + 1
+        wk, packed = layer._kernel_weights
+        assert wk.dtype == packed.dtype == dt and out.dtype == dt
+        assert tuple(packed.shape) == pmc.packed_shape(4 if up else 1, 16, 32, dt)
+        assert torch.isfinite(out).all()
+
+
+@pytest.mark.cuda
+def test_inversion_step_gradient_on_the_card_matches_the_cpu(card, tmp_path):
+    """One inversion step's loss and style-vector gradient (64^2, K = 7,
+    every criterion) on the card against the CPU's, seeded weights: the
+    forward runs the kernel (7 launches), the backward its plain version.
+    1e-3 relative max: the card's convolutions, f32 with TF32 off, sum in
+    another order, and the demodulation's scale invariance cancels the
+    gradient to a fraction of its parts (tests/test_torch_inversion.py)."""
+    from e4s_tpu_torch.datasets.dataset import SyntheticFaceDataset, label_map_to_onehot
+    from e4s_tpu_torch.pipelines.optimization import Optimizer
+
+    opts = types.SimpleNamespace(
+        num_seg_cls=12, out_size=64, remaining_layer_idx=7, n_styles=10,
+        start_from_latent_avg=True, encoder_size=64, checkpoint_path=None,
+        dataset_root=str(tmp_path), ds_frac=1.0, lr=0.01, opt_name="adam",
+        W_steps=1, optimize_noise=False, bf16=False, save_intermediate=False,
+        save_interval=50, output_dir=str(tmp_path), lpips_lambda=0.8,
+        id_lambda=0.1, id_loss_multiscale=True, face_parsing_lambda=0.1,
+        l2_lambda=1.0, ir_se50_path=None, face_parsing_model_path=None)
+    img, label, _ = SyntheticFaceDataset(size=64)[3]
+    onehot = label_map_to_onehot(label[None], 12)
+    sv = np.random.RandomState(4).rand(1, 12, 1280).astype(np.float32)
+    res = {}
+    for dev in ("cuda", "cpu"):
+        opt = Optimizer(opts, device=dev, seed=5)
+        sv_t = torch.from_numpy(sv).to(dev).requires_grad_(True)
+        pmc.patch_mod_conv3_nhwc.launches = 0
+        recon = opt.gen_from_sv(sv_t, torch.from_numpy(onehot).to(dev))
+        loss, _ = opt.calc_loss(torch.from_numpy(img[None]).to(dev), recon)
+        (g,) = torch.autograd.grad(loss, sv_t)
+        assert pmc.patch_mod_conv3_nhwc.launches == (7 if dev == "cuda" else 0)
+        res[dev] = (loss.item(), g.cpu().numpy())
+    (lc, gc), (lp, gp) = res["cuda"], res["cpu"]
+    assert np.isfinite(gc).all() and np.abs(gp).max() > 0
+    assert abs(lc - lp) <= 1e-4 * abs(lp)
+    assert np.abs(gc - gp).max() <= 1e-3 * np.abs(gp).max()
