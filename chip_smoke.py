@@ -5,8 +5,8 @@
 Phases, in order; the first that fails ends the run with a non-zero exit:
 
   1. card: device name and count, ``nvidia-smi`` name and power limit;
-  2. build: compile every CUDA kernel of the main path from ``csrc/`` and
-     print the ``-Xptxas -v`` report;
+  2. build: compile every CUDA kernel of the main path from ``csrc/`` (one
+     nvcc per source, run together) and print the ``-Xptxas -v`` report;
   3. kernel vs plain: each kernel entry (stride-1 and fused masked up-conv)
      against its plain PyTorch version at every shape the main path gives
      it (and, as context, both against the plain version in f64);
@@ -28,8 +28,8 @@ Phases, in order; the first that fails ends the run with a non-zero exit:
      plain version at batch 8 at all 13 stages, with times and bounds;
   9. the new paths at 256^2 on the card and on the CPU: the SegNeXt +
      ``lap_bld`` fused swap and the staged target-mask path, as PSNR;
- 10. the bf16 instantiation against its bf16 plain version at the 13
-     stages, B = 1 and 8, and its times (cold L2) against the bf16 bound;
+ 10. the bf16 kernel against its bf16 plain version at the 13 stages,
+     B = 1 and 8, and its times (cold L2) against the bf16 bound;
  11. ``--bf16`` swaps at 1024^2 (BiSeNet + feather): 3 requests, 13 bf16
      launches each, peak memory; then at 256^2 bf16 on the card against
      bf16 on the CPU, and bf16 against f32 on the card, as PSNR;
@@ -39,7 +39,10 @@ Phases, in order; the first that fails ends the run with a non-zero exit:
  13. inversion at 1024^2: 5 steps of ``Optimizer.invertion`` in f32 and in
      bf16 on a synthetic face, the loss and ms of each step and 13 launches
      per step's forward; then at 256^2 the card's and the CPU's losses over
-     3 steps in f32, within 1e-3 relative.
+     3 steps in f32, within 1e-3 relative;
+ 14. ``swap_batch`` with ``bf16``: the 8 pairs of phase 8 in one chunk of 8
+     and in chunks of 1, 13 launches of the bf16 kernel per chunk: swaps/s
+     and peak memory.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
 line before it is the per-kernel JSON summary. TF32 is off throughout.
@@ -115,8 +118,9 @@ def phase_build():
     from e4s_tpu_torch.ops import patch_modconv as pmc
 
     t0 = time.perf_counter()
-    path, report = pmc.build()
-    log(f"[build] {path.name} in {time.perf_counter() - t0:.1f} s")
+    paths, report = pmc.build()
+    log(f"[build] {', '.join(p.name for p in paths)} in "
+        f"{time.perf_counter() - t0:.1f} s (one nvcc per source, together)")
     for line in report.strip().splitlines():
         log(f"[build] {line}")
 
@@ -227,7 +231,7 @@ def _time_cuda(fn, iters=20, flush=None):
 
 
 def phase_kernel_times(B=1, dtype=torch.float32):
-    from e4s_tpu_torch.ops.patch_modconv import TILE_K, pack_weight, plan
+    from e4s_tpu_torch.ops.patch_modconv import pack_weight, plan, plan_bf16
 
     flush = torch.empty(256 * 1024 * 1024, dtype=torch.float32, device="cuda")
     rows = []
@@ -239,8 +243,10 @@ def phase_kernel_times(B=1, dtype=torch.float32):
         kernel, plain = _pmc_entries(up)
         x, w, smap, dmap = _pmc_inputs(H, Ci, Co, up, seed=i, B=B, dtype=dtype)
         packed = pack_weight(w)
-        th, tw, splits = plan(B, H, H, Ci, Co, 4 if up else 1, sms,
-                              TILE_K[dtype])
+        if dtype == torch.bfloat16:
+            th, tw, splits = plan_bf16(B, H, H, Ci, Co, 4 if up else 1, sms)
+        else:
+            th, tw, splits = plan(B, H, H, Ci, Co, 4 if up else 1, sms)
         ms = _time_cuda(lambda: kernel(x, w, smap, dmap, packed), flush=flush)
         plain_ms = _time_cuda(lambda: plain(x, w, smap, dmap), flush=flush)
         # context only: a plain conv of one phase's shape, a different function
@@ -443,14 +449,15 @@ def _batch_pairs(n=8, S=1024):
     return np.ascontiguousarray(np.stack(src)), np.ascontiguousarray(np.stack(tgt))
 
 
-def phase_swap_batch():
+def phase_swap_batch(bf16=False):
     """swap_batch of 8 distinct uint8 pairs at 1024^2 in one chunk of 8 and
     in chunks of 1 (each warmed up once, then timed twice); 13 launches per
-    chunk. Returns swaps/s per chunk size."""
-    from e4s_tpu_torch.ops.patch_modconv import patch_mod_conv3_nhwc
+    chunk (all of the bf16 kernel with ``bf16``). Returns swaps/s per chunk
+    size."""
     from e4s_tpu_torch.pipelines.face_swap import FaceSwapper
 
-    swapper = FaceSwapper(_opts(1024, 18), device="cuda", seed=0)
+    dt = "bf16" if bf16 else "f32"
+    swapper = FaceSwapper(_opts(1024, 18, bf16=bf16), device="cuda", seed=0)
     finite = _finite_hook(swapper)
     src, tgt = _batch_pairs()
     rates = {}
@@ -461,16 +468,16 @@ def phase_swap_batch():
         runs = []
         for _ in range(2):
             finite.clear()
-            patch_mod_conv3_nhwc.launches = 0
+            _reset_launches()
             t0 = time.perf_counter()
             out = swapper.swap_batch(src, tgt, chunk=chunk)
             torch.cuda.synchronize()
             runs.append(time.perf_counter() - t0)
-            launches = patch_mod_conv3_nhwc.launches
+            launches, n_bf16 = _launch_counts()
             want = PMC_LAUNCHES_PER_SWAP * (len(src) // chunk)
-            if launches != want:
-                raise SystemExit(f"FAIL batch: chunk {chunk}: {launches} "
-                                 f"kernel launches, want {want}")
+            if launches != want or n_bf16 != (want if bf16 else 0):
+                raise SystemExit(f"FAIL batch: {dt} chunk {chunk}: {launches} kernel "
+                                 f"launches ({n_bf16} bf16), want {want} {dt}")
             if out.shape != src.shape or out.dtype != np.uint8:
                 raise SystemExit(f"FAIL batch: result {out.shape} {out.dtype}")
             if not all(f.item() for f in finite):
@@ -479,12 +486,13 @@ def phase_swap_batch():
         if distinct != len(out):
             raise SystemExit(f"FAIL batch: {distinct} distinct results of {len(out)}")
         rates[chunk] = [len(src) / t for t in runs]
-        log(f"[batch] swap_batch 8 pairs 1024^2 uint8, chunk {chunk}: "
+        log(f"[batch] {dt} swap_batch 8 pairs 1024^2 uint8, chunk {chunk}: "
             f"{', '.join(f'{t * 1e3:.1f}' for t in runs)} ms "
             f"({', '.join(f'{r:.3f}' for r in rates[chunk])} swaps/s), "
-            f"{launches} launches ({launches * chunk // len(src)} per chunk), "
-            f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    log(f"[batch] swaps/s chunk 8 over chunk 1: "
+            f"{launches} launches ({launches * chunk // len(src)} per chunk, bf16 "
+            f"{n_bf16}), peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    log(f"[batch] {dt} swaps/s chunk 8 over chunk 1: "
         f"{max(rates[8]) / max(rates[1]):.3f}x (best of two each)")
     del swapper
     torch.cuda.empty_cache()
@@ -789,10 +797,12 @@ def main():
     phase_bf16_vs_cpu_and_f32()
     phase_edit_sweep()
     phase_inversion()
-    row = dict(route="cuda", source="e4s_tpu_torch/csrc/patch_mod_conv3.cu",
-               replaces="e4s_tpu/ops/pallas/modconv_tpu.py:39", library_ms=None)
+    phase_swap_batch(bf16=True)
+    row = dict(route="cuda", replaces="e4s_tpu/ops/pallas/modconv_tpu.py:39",
+               library_ms=None)
     summary = {"kernels": [{
         "name": "patch_mod_conv3", **row,
+        "source": "e4s_tpu_torch/csrc/patch_mod_conv3.cu",
         "launches": launches,
         "max_abs_err": worst,
         "ms": per_swap("ms"),
@@ -801,6 +811,7 @@ def main():
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
     }, {
         "name": "patch_mod_conv3_bf16", **row,
+        "source": "e4s_tpu_torch/csrc/patch_mod_conv3_bf16.cu",
         "launches": launches16,
         "max_abs_err": worst16,
         "ms": per_swap16("ms"),

@@ -1,9 +1,8 @@
-// Region-masked modulated 3x3 convolution, NHWC, on Hopper tensor cores
-// (wgmma), in two kernels: f32 in / f32 out in the 3xTF32 split, and bf16
-// in / bf16 out with f32 accumulation. They share their tiling, ring and
-// schedule; the bf16 kernel is a copy of the f32 one with bf16 operands,
-// kept apart so that the f32 kernel compiles as it did alone (sharing one
-// templated body made ptxas serialise its wgmma and cost it 9%).
+// Region-masked modulated 3x3 convolution, NHWC, f32 in / f32 out, on
+// Hopper tensor cores (wgmma) in the 3xTF32 split. The bf16 form has its
+// own kernel and design in patch_mod_conv3_bf16.cu, kept apart so that this
+// kernel compiles as it does alone (sharing one templated body made ptxas
+// serialise its wgmma and cost it 9%).
 //
 //   out[b,oh,ow,o] = dmap[b,oh,ow,o] *
 //       sum_{ty,tx,i} W[ty,tx,o,i] * smap[b,oh,ow,i] * x[b,h+ty-1,w+tx-1,i]
@@ -21,38 +20,31 @@
 // W arrives packed by the caller, once per weight
 // (ops/patch_modconv.py::pack_weight): per phase (P = 1 or 4), K step and
 // 128-channel block, one contiguous tile holding the 9 taps in wgmma's
-// K-major core-matrix layout, zero-padded past Co and Ci. f32: a K step is
-// 8 input channels and the tile (72 KB) holds the taps' TF32 high halves,
-// then their low halves. bf16: a K step is 16 input channels and the tile
-// (36 KB) holds the bf16 taps once.
+// K-major core-matrix layout, zero-padded past Co and Ci. A K step is 8
+// input channels and the tile (72 KB) holds the taps' TF32 high halves,
+// then their low halves.
 //
 // Replaces the Pallas TPU kernel e4s_tpu/ops/pallas/modconv_tpu.py::_kernel
-// (launched by _run / patch_mod_conv3_nhwc), in both of the forms it runs:
-// f32, and bf16, where the Pallas kernel forms x*smap in bf16, accumulates
-// in f32 and multiplies by dmap in f32 before one rounding to bf16.
+// (launched by _run / patch_mod_conv3_nhwc) in its f32 form.
 //
 // What bounds it on an H100: the 64^2-256^2 layers do 10-19 GFLOP per phase
-// at 64-140 FLOP/byte (f32; twice that per byte in bf16), so they are bound
-// by operations; plain f32 FMAs would cap them at 67 TFLOP/s, 3xTF32 on the
-// tensor cores at 165, bf16 on them at 989. The 4^2-16^2 layers are bound
-// by the one read of the 512x512x9 weight (9.4 MB per phase in f32, 4.7 MB
-// in bf16), and a grid of output tiles alone would give them 4-32 blocks for
-// 132 SMs.
+// at 64-140 FLOP/byte, so they are bound by operations; plain f32 FMAs
+// would cap them at 67 TFLOP/s, 3xTF32 on the tensor cores at 165. The
+// 4^2-16^2 layers are bound by the one read of the 512x512x9 weight (9.4 MB
+// per phase), and a grid of output tiles alone would give them 4-32 blocks
+// for 132 SMs.
 //
 // Design:
 //   - an implicit GEMM with M = output pixels (a TH x TW tile: 16x16 from
 //     64^2 up, 8x16 or 8x8 below), N = 128 output channels, K = 9 taps x
-//     Ci; two warpgroups issue wgmma.mma_async (m64nNk8 on TF32, m64nNk16
-//     on bf16): at 16x16 each takes 128 pixels (two m64 accumulators) x 128
-//     channels, at 8x16 64 pixels x 128 channels, at 8x8 all 64 pixels x 64
+//     Ci; two warpgroups issue wgmma.mma_async (m64nNk8 on TF32): at 16x16
+//     each takes 128 pixels (two m64 accumulators) x 128 channels, at 8x16 64 pixels x 128 channels, at 8x8 all 64 pixels x 64
 //     channels. The 16x16 tile feeds each weight tile to 256 pixels,
 //     halving the weight traffic from L2 per FLOP against 8x16;
 //   - f32: near-f32 accuracy from the 3xTF32 split: a = a_hi + a_lo,
 //     b = b_hi + b_lo, D += a_lo b_hi + a_hi b_lo + a_hi b_hi, accumulated
 //     in f32 by the tensor cores (plain TF32 would be off by ~5e-4
-//     relative per operand). bf16: A = x*smap is formed in f32 (exact for
-//     two bf16 values) and rounded once to bf16, which is the bf16 product
-//     of the Pallas kernel bit for bit; one wgmma per tap accumulates in f32;
+//     relative per operand);
 //   - per K step the (TH+2) x (TW+2) halo patch, the smap tile and the
 //     weight tile go into one slot of a 2-deep ring in dynamic shared
 //     memory: x and smap by cp.async (zero-fill at the image edge and past
@@ -65,19 +57,16 @@
 //     straight from shared memory (wgmma takes A from registers), so none of
 //     the nine modulated copies of x reaches any memory; the registers of
 //     three taps rotate, so a tap's A is built while the two before it run.
-//     A pixel's row of a K step is 32 bytes in both types (8 f32 or 16 bf16
-//     channels), padded to 48 so the fragment loads are free of bank
-//     conflicts; a thread reads the same 32-bit words in both (one f32, or
-//     the bf16 pair of its fragment);
+//     A pixel's row of a K step is 32 bytes (8 channels), padded to 48 so
+//     the fragment loads are free of bank conflicts;
 //   - small layers: split-K over Ci (the split count is picked per shape on
 //     the host to fill the 132 SMs); each split writes its f32 partial sum
 //     to a workspace and a second pass sums the splits in a fixed order,
-//     applies dmap and rounds to the output type once, so results repeat
-//     bit for bit (no atomics);
-//   - otherwise the epilogue multiplies by dmap in f32 and stores.
+//     applies dmap, so results repeat bit for bit (no atomics);
+//   - otherwise the epilogue multiplies by dmap and stores.
 // Edges (H, W not multiples of the tile; Co not a multiple of 128; the
 // last K step) are zero-filled on load and masked on store. Ci must be a
-// multiple of one 16-byte copy: 4 channels in f32, 8 in bf16.
+// multiple of one 16-byte copy, 4 channels.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -506,364 +495,6 @@ cudaError_t launch_tc(const Args& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// ------------------------------------------------------------------ bf16
-// A K step is 16 input channels (one k16 wgmma). A pixel's row of a step is
-// 32 bytes, the same 8 words as in the f32 kernel, so the x / smap tiles,
-// their padding and each thread's fragment words are the f32 kernel's: word
-// t (t+4) of a pixel row holds channels 2t, 2t+1 (2t+8, 2t+9), the bf16
-// pair of the thread's A fragment. The weight tile of a step holds the 9
-// taps once (36 KB; 4 KB a tap, as in f32).
-
-constexpr int BKB = 16;          // input channels per bf16 K step
-constexpr int WTAPB = BN * BKB;  // bf16 values per tap tile
-
-template <int TH, int TW>
-struct CfgB {
-  using C = Cfg<TH, TW>;
-  static constexpr int WS = 9 * WTAPB / 2;          // words of a weight tile
-  static constexpr int STAGE = C::XS + C::SS + WS;  // words per ring slot
-  static constexpr size_t SMEM = sizeof(float) * STAGE * STAGES;
-  static_assert(SMEM <= 232448, "more shared memory than a block may use");
-};
-
-__device__ __forceinline__ void cp_async16_v(void* dst, const void* src,
-                                             bool pred) {
-  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  const int n = pred ? 16 : 0;  // 0: fill the 16 bytes with zeros
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(n));
-}
-
-__device__ __forceinline__ void bulk_load_v(void* dst, const void* src,
-                                            uint32_t bytes, uint64_t* bar) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-                   smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
-      "l"(src), "r"(bytes), "r"(smem_u32(bar))
-      : "memory");
-}
-
-__device__ __forceinline__ uint64_t kmajor_desc_v(const void* p) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  return (uint64_t)((a & 0x3FFFF) >> 4) | ((uint64_t)(LBO >> 4) << 16) |
-         ((uint64_t)(SBO >> 4) << 32);
-}
-
-// The bf16 pair x*s of two packed bf16 pairs: each product in f32 (exact
-// for two bf16 values), rounded to nearest even once, as the Pallas kernel
-// forms x*smap in bf16.
-__device__ __forceinline__ uint32_t mul_bf16x2(uint32_t x, uint32_t s) {
-  const float2 xf = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&x));
-  const float2 sf = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&s));
-  const __nv_bfloat162 p = __floats2bfloat162_rn(xf.x * sf.x, xf.y * sf.y);
-  return *reinterpret_cast<const uint32_t*>(&p);
-}
-
-// D[64 x N] += A[64 x 16] B[16 x N] on bf16, f32 accumulate; A from
-// registers, B (K-major: the last immediate, 0) through `desc`.
-__device__ __forceinline__ void wgmma_m64n128k16(float* d, const uint32_t* a,
-                                                 uint64_t desc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
-}
-
-__device__ __forceinline__ void wgmma_m64n64k16(float* d, const uint32_t* a,
-                                                uint64_t desc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
-}
-
-template <int N>
-__device__ __forceinline__ void wgmma_bf16(float* d, const uint32_t* a,
-                                           uint64_t desc) {
-  if constexpr (N == 128)
-    wgmma_m64n128k16(d, a, desc);
-  else
-    wgmma_m64n64k16(d, a, desc);
-}
-
-struct ArgsB {
-  const __nv_bfloat16* x;     // [B,H,W,Ci]
-  const __nv_bfloat16* wp;    // [P][Ci/16][Co/128][9 taps][128 x 16]
-  const __nv_bfloat16* smap;  // [B,Ho,Wo,Ci]
-  const __nv_bfloat16* dmap;  // [B,Ho,Wo,Co] or null
-  __nv_bfloat16* out;         // [B,Ho,Wo,Co]
-  float* part;                // [S,B,Ho,Wo,Co] f32 workspace when splits > 1
-  int B, H, W, Ci, Co, up, splits, tiles_w, steps_per_split;
-};
-
-// One bf16 K step (input channels k0 .. k0+15 of this split) into ring slot
-// `st`, as load_step does for f32.
-template <int TH, int TW>
-__device__ __forceinline__ void load_step_bf16(
-    uint32_t* st, const ArgsB& p, const __nv_bfloat16* xb,
-    const __nv_bfloat16* sb, const __nv_bfloat16* wsrc, uint64_t* bar,
-    int h0, int w0, int pa, int pb, int k0, int kend) {
-  using C = Cfg<TH, TW>;
-  const int tid = threadIdx.x;
-  const int Wo = p.W << p.up;
-  uint32_t* xs = st;
-  uint32_t* ss = st + C::XS;
-  uint32_t* ws = st + C::XS + C::SS;
-  // x halo patch: (PH*PW pixels) x (2 chunks of 8 channels)
-  for (int e = tid; e < C::PH * C::PW * 2; e += NTHREADS) {
-    const int c = e & 1;
-    const int q = e >> 1;
-    const int r = h0 - 1 + q / C::PW;
-    const int col = w0 - 1 + q % C::PW;
-    const int k = k0 + 8 * c;
-    const bool ok = r >= 0 && r < p.H && col >= 0 && col < p.W && k < kend;
-    const __nv_bfloat16* src = ok ? xb + ((size_t)r * p.W + col) * p.Ci + k : xb;
-    cp_async16_v(xs + q * PSTRIDE + 4 * c, src, ok);
-  }
-  // smap at the output pixels of this phase
-  for (int e = tid; e < C::BM * 2; e += NTHREADS) {
-    const int c = e & 1;
-    const int q = e >> 1;
-    const int r = h0 + q / TW;
-    const int col = w0 + q % TW;
-    const int k = k0 + 8 * c;
-    const bool ok = r < p.H && col < p.W && k < kend;
-    const __nv_bfloat16* src =
-        ok ? sb + ((size_t)((r << p.up) + pa) * Wo + (col << p.up) + pb) * p.Ci + k
-           : sb;
-    cp_async16_v(ss + q * PSTRIDE + 4 * c, src, ok);
-  }
-  // the 9 weight taps of the step, in core-matrix order
-  if (tid == 0) bulk_load_v(ws, wsrc, sizeof(uint32_t) * CfgB<TH, TW>::WS, bar);
-}
-
-template <int TH, int TW>
-__global__ void __launch_bounds__(NTHREADS, 1)
-patch_mod_conv3_bf16_kernel(const ArgsB p) {
-  using C = Cfg<TH, TW>;
-  using CB = CfgB<TH, TW>;
-  constexpr int WN = C::WN;
-  extern __shared__ __align__(128) float smem[];
-  __shared__ __align__(8) uint64_t full[STAGES];  // weight tile landed
-  uint32_t* sm = reinterpret_cast<uint32_t*>(smem);
-
-  const int P = p.up ? 4 : 1;
-  const int z = blockIdx.z;
-  const int split = z % p.splits;
-  const int ph = (z / p.splits) % P;
-  const int b = z / (p.splits * P);
-  const int pa = ph >> 1;
-  const int pb = ph & 1;
-  const int h0 = (blockIdx.x / p.tiles_w) * TH;
-  const int w0 = (blockIdx.x % p.tiles_w) * TW;
-  const int o0 = blockIdx.y * BN;
-  const int Ho = p.H << p.up;
-  const int Wo = p.W << p.up;
-
-  const __nv_bfloat16* xb = p.x + (size_t)b * p.H * p.W * p.Ci;
-  const __nv_bfloat16* sb = p.smap + (size_t)b * Ho * Wo * p.Ci;
-  const int nk = (p.Ci + BKB - 1) / BKB;
-  // this block's weight tile of K step 0; step s is s * gridDim.y tiles on
-  const __nv_bfloat16* wb =
-      p.wp + ((size_t)ph * nk * gridDim.y + blockIdx.y) * 9 * WTAPB;
-  const size_t wstep = (size_t)gridDim.y * 9 * WTAPB;
-
-  const int kbeg = split * p.steps_per_split * BKB;
-  const int kend = min(p.Ci, kbeg + p.steps_per_split * BKB);
-  const int nsteps = kend > kbeg ? (kend - kbeg + BKB - 1) / BKB : 0;
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int wg = warp >> 2;  // warpgroup
-  const int g = lane >> 2;   // fragment row group
-  const int t = lane & 3;    // thread in group
-  constexpr int MH = C::MH;
-  const int q0 = (C::BM == 64 ? 0 : wg * (C::BM / 2)) + (warp & 3) * 16 + g;
-  const int n0 = C::BM == 64 ? wg * 64 : 0;
-  int qb[MH][2], pr[MH][2];
-#pragma unroll
-  for (int m = 0; m < MH; ++m)
-#pragma unroll
-    for (int hf = 0; hf < 2; ++hf) {
-      const int q = q0 + 64 * m + 8 * hf;
-      pr[m][hf] = q * PSTRIDE;
-      qb[m][hf] = ((q / TW) * C::PW + q % TW) * PSTRIDE;
-    }
-
-  float acc[MH][WN / 2];
-#pragma unroll
-  for (int m = 0; m < MH; ++m)
-#pragma unroll
-    for (int j = 0; j < WN / 2; ++j) acc[m][j] = 0.f;
-
-  if (tid == 0) {
-#pragma unroll
-    for (int s = 0; s < STAGES; ++s) mbar_init(&full[s]);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
-  const int s0 = kbeg / BKB;  // this split's first K step
-
-  if (nsteps > 0)
-    load_step_bf16<TH, TW>(sm, p, xb, sb, wb + s0 * wstep, &full[0], h0, w0,
-                           pa, pb, kbeg, kend);
-  cp_async_commit();
-
-  // A registers of three taps in turn, as in the f32 kernel
-  uint32_t a[3][MH][4];
-  for (int i = 0; i < nsteps; ++i) {
-    mbar_wait(&full[i % STAGES], (i / STAGES) & 1);
-    cp_async_wait<0>();
-    __syncthreads();  // step i has landed, everyone's copies included
-    const uint32_t* xs = sm + (i % STAGES) * CB::STAGE;
-    const uint32_t* ss = xs + C::XS;
-    const __nv_bfloat16* wsm = reinterpret_cast<const __nv_bfloat16*>(ss + C::SS);
-
-    uint32_t s[MH][4];  // smap pairs at the fragment's (pixel, channel) slots
-#pragma unroll
-    for (int m = 0; m < MH; ++m) {
-      s[m][0] = ss[pr[m][0] + t];
-      s[m][1] = ss[pr[m][1] + t];
-      s[m][2] = ss[pr[m][0] + t + 4];
-      s[m][3] = ss[pr[m][1] + t + 4];
-    }
-
-#pragma unroll
-    for (int tap = 0; tap < 9; ++tap) {
-      const int off = ((tap / 3) * C::PW + tap % 3) * PSTRIDE;
-#pragma unroll
-      for (int m = 0; m < MH; ++m) {
-        uint32_t* am = a[tap % 3][m];
-        am[0] = mul_bf16x2(xs[qb[m][0] + off + t], s[m][0]);
-        am[1] = mul_bf16x2(xs[qb[m][1] + off + t], s[m][1]);
-        am[2] = mul_bf16x2(xs[qb[m][0] + off + t + 4], s[m][2]);
-        am[3] = mul_bf16x2(xs[qb[m][1] + off + t + 4], s[m][3]);
-      }
-      const uint64_t desc =
-          kmajor_desc_v(wsm + tap * WTAPB + (n0 >> 3) * (SBO / 2));
-      wgmma_fence();
-#pragma unroll
-      for (int m = 0; m < MH; ++m) wgmma_bf16<WN>(acc[m], a[tap % 3][m], desc);
-      wgmma_commit();
-      wgmma_wait<2>();  // tap-2's group is done with the A regs tap+1 fills
-      if (tap == 2) {
-        __syncthreads();
-        if (i + 1 < nsteps)
-          load_step_bf16<TH, TW>(sm + ((i + 1) % STAGES) * CB::STAGE, p, xb,
-                                 sb, wb + (s0 + i + 1) * wstep,
-                                 &full[(i + 1) % STAGES], h0, w0, pa, pb,
-                                 kbeg + (i + 1) * BKB, kend);
-        cp_async_commit();
-      }
-    }
-  }
-  wgmma_wait<0>();
-  cp_async_wait<0>();
-
-  // epilogue: dmap in f32 and one rounding to bf16, or the raw f32 partial
-  // sum of this split
-  const bool partial = p.splits > 1;
-  float* part = p.part + (size_t)split * p.B * Ho * Wo * p.Co;
-#pragma unroll
-  for (int m = 0; m < MH; ++m)
-#pragma unroll
-    for (int hf = 0; hf < 2; ++hf) {
-      const int q = q0 + 64 * m + 8 * hf;
-      const int r = h0 + q / TW;
-      const int col = w0 + q % TW;
-      if (r >= p.H || col >= p.W) continue;
-      const size_t base =
-          (((size_t)b * Ho + (r << p.up) + pa) * Wo + (col << p.up) + pb) * p.Co;
-#pragma unroll
-      for (int j = 0; j < WN / 8; ++j)
-#pragma unroll
-        for (int c = 0; c < 2; ++c) {
-          const int o = o0 + n0 + 8 * j + 2 * t + c;
-          if (o >= p.Co) continue;
-          float v = acc[m][4 * j + 2 * hf + c];
-          if (partial) {
-            part[base + o] = v;
-          } else {
-            if (p.dmap) v *= __bfloat162float(p.dmap[base + o]);
-            p.out[base + o] = __float2bfloat16_rn(v);
-          }
-        }
-    }
-}
-
-// Second pass of bf16 split-K: sums the f32 splits in a fixed order,
-// applies dmap in f32 and rounds to bf16 once.
-__global__ void splitk_reduce_bf16_kernel(const float* __restrict__ part,
-                                          const __nv_bfloat16* __restrict__ dmap,
-                                          __nv_bfloat16* __restrict__ out,
-                                          size_t n, int splits) {
-  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += (size_t)gridDim.x * blockDim.x) {
-    float v = 0.f;
-    for (int s = 0; s < splits; ++s) v += part[(size_t)s * n + i];
-    out[i] = __float2bfloat16_rn(dmap ? v * __bfloat162float(dmap[i]) : v);
-  }
-}
-
-template <int TH, int TW>
-cudaError_t launch_bf16(const ArgsB& a, cudaStream_t stream) {
-  using CB = CfgB<TH, TW>;
-  const cudaError_t e = cudaFuncSetAttribute(
-      patch_mod_conv3_bf16_kernel<TH, TW>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)CB::SMEM);
-  if (e != cudaSuccess) return e;
-  const int tiles_h = (a.H + TH - 1) / TH;
-  const dim3 grid(a.tiles_w * tiles_h, (a.Co + BN - 1) / BN,
-                  a.B * (a.up ? 4 : 1) * a.splits);
-  patch_mod_conv3_bf16_kernel<TH, TW><<<grid, NTHREADS, CB::SMEM, stream>>>(a);
-  return cudaGetLastError();
-}
-
 }  // namespace
 
 // Plain C entry for ctypes. Launches on `stream`, does not synchronise, and
@@ -891,35 +522,5 @@ extern "C" int patch_mod_conv3_f32(const float* x, const float* wp,
   const size_t n = (size_t)B * (H << up) * (W << up) * Co;
   const int blocks = (int)((n + 255) / 256 < 1024 ? (n + 255) / 256 : 1024);
   splitk_reduce_kernel<<<blocks, 256, 0, stream>>>(part, dmap, out, n, splits);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// The bf16 entry, as patch_mod_conv3_f32 with bf16 x, wp (pack_weight of a
-// bf16 weight), smap, dmap and out; `part` is an f32 workspace. Ci must be
-// a multiple of 8 (16-byte copies).
-extern "C" int patch_mod_conv3_bf16(const void* x, const void* wp,
-                                    const void* smap, const void* dmap,
-                                    void* out, float* part, int B, int H,
-                                    int W, int Ci, int Co, int up, int th,
-                                    int tw, int splits, void* stream_ptr) {
-  const bool tile_ok = (th == 8 && (tw == 8 || tw == 16)) ||
-                       (th == 16 && tw == 16);
-  if (!tile_ok || splits < 1 || (splits > 1 && !part) || Ci % 8 != 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  const int nk = (Ci + BKB - 1) / BKB;
-  using bf = __nv_bfloat16;
-  ArgsB a{static_cast<const bf*>(x), static_cast<const bf*>(wp),
-          static_cast<const bf*>(smap), static_cast<const bf*>(dmap),
-          static_cast<bf*>(out), part, B, H, W, Ci, Co, up, splits,
-          (W + tw - 1) / tw, (nk + splits - 1) / splits};
-  cudaError_t e = th == 16  ? launch_bf16<16, 16>(a, stream)
-                  : tw == 16 ? launch_bf16<8, 16>(a, stream)
-                             : launch_bf16<8, 8>(a, stream);
-  if (e != cudaSuccess || splits == 1) return static_cast<int>(e);
-  const size_t n = (size_t)B * (H << up) * (W << up) * Co;
-  const int blocks = (int)((n + 255) / 256 < 1024 ? (n + 255) / 256 : 1024);
-  splitk_reduce_bf16_kernel<<<blocks, 256, 0, stream>>>(
-      part, a.dmap, a.out, n, splits);
   return static_cast<int>(cudaGetLastError());
 }

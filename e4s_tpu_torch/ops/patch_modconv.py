@@ -21,18 +21,22 @@ accumulated in f32, multiplied by dmap in f32, rounded to bf16 once). Mixed
 dtypes are refused, never cast.
 
 On an H100 the large layers are bound by operations and the small ones
-(4^2..16^2) by the single read of the 512x512x9 weight. The kernel in
-``csrc/patch_mod_conv3.cu`` is an implicit GEMM on the tensor cores (f32 in
-the 3xTF32 split for near-f32 accuracy, bf16 with one wgmma per tap), fed by
-TMA bulk copies and cp.async; the small layers split K over the input
-channels to fill the card, and an up-conv is one launch over the four
-phases. Its source note gives the tiling.
+(4^2..16^2) by the single read of the 512x512x9 weight. Both kernels are
+implicit GEMMs on the tensor cores, and an up-conv is one launch over the
+four phases. ``csrc/patch_mod_conv3.cu`` (f32, in the 3xTF32 split for
+near-f32 accuracy) is fed by TMA bulk copies and cp.async, and its small
+layers split K with a second summing pass. ``csrc/patch_mod_conv3_bf16.cu``
+is warp-specialised: a producer keeps a TMA ring of 32-channel K chunks
+full for wgmma consumers, and the small layers split K across a
+thread-block cluster and sum the splits through distributed shared memory
+in the same launch. Each source note gives its tiling.
 
-The kernel takes the weight packed into per-step tiles (``pack_weight``;
+The kernels take the weight packed into per-step tiles (``pack_weight``;
 for f32 also split into TF32 halves); the model packs each weight once and
-keeps it (``models/stylegan2.py::ModulatedConv2d``). It is built at first
-use with ``nvcc`` into a shared library with a plain C interface (loaded
-with ``ctypes``) under ``e4s_tpu_torch/build/``.
+keeps it (``models/stylegan2.py::ModulatedConv2d``). Each source is built
+at first use with ``nvcc`` (one process per source, run together) into a
+shared library with a plain C interface (loaded with ``ctypes``) under
+``e4s_tpu_torch/build/``.
 """
 
 from __future__ import annotations
@@ -50,20 +54,24 @@ import torch
 import torch.nn.functional as F
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "patch_mod_conv3.cu"
+# the source of each instantiation, each built into its own library
+SOURCES = {torch.float32: _PKG / "csrc" / "patch_mod_conv3.cu",
+           torch.bfloat16: _PKG / "csrc" / "patch_mod_conv3_bf16.cu"}
 BUILD_DIR = _PKG / "build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 TILE_N = 128  # output channels of a block
-# input channels of a K step (one wgmma depth: 32 bytes of each operand row)
-TILE_K = {torch.float32: 8, torch.bfloat16: 16}
+# input channels of a K step: f32 one k8 wgmma depth, bf16 a 32-channel
+# chunk (two k16 slices)
+TILE_K = {torch.float32: 8, torch.bfloat16: 32}
+MAX_CLUSTER = 8  # blocks of a portable thread-block cluster
 # the C entry of each instantiation
 _ENTRY = {torch.float32: "patch_mod_conv3_f32",
           torch.bfloat16: "patch_mod_conv3_bf16"}
 
-_lib = None
+_libs = None
 _lib_lock = threading.Lock()
 
 
@@ -119,7 +127,7 @@ def packed_shape(P, Co, Ci, dtype=torch.float32):
     k = TILE_K[dtype]
     nk, nco = -(-Ci // k), -(-Co // TILE_N)
     if dtype == torch.bfloat16:
-        return (P, nk, nco, 9, TILE_N // 8, 2, 8, 8)
+        return (P, nk, nco, 3, 3, 2, TILE_N // 8, 2, 8, 8)
     return (P, nk, nco, 2, 9, TILE_N // 8, 2, 8, 4)
 
 
@@ -132,38 +140,79 @@ def pack_weight(w):
     f32: [P, K step (8 input channels), block, TF32 half, tap, n // 8,
     k // 4, n % 8, k % 4]. The halves are the 3xTF32 split of the weight,
     made once here instead of in every block: hi = tf32(w),
-    lo = tf32(w - hi). bf16: [P, K step (16 input channels), block, tap,
-    n // 8, k // 8, n % 8, k % 8], the weight's own values."""
+    lo = tf32(w - hi).
+
+    bf16: [P, K chunk (32 input channels), block, tap row, tap column,
+    k16 slice j, n // 8, k // 8, n % 8, k % 8], the weight's own values;
+    a tap row (24 KB) is one stage of the kernel's weight ring. Within a
+    chunk, position k of slice j holds input channel 8 (k % 8 // 2) + 4 j
+    + 2 (k // 8) + k % 2, so that the kernel's thread t finds the A
+    fragments of both slices in channels 8t .. 8t+7, one 16-byte load."""
     if w.dtype not in TILE_K:
         raise TypeError(f"the kernel takes float32 or bfloat16, not {w.dtype}")
     wp = w if w.dim() == 5 else w[None]
     P, Co, Ci = wp.shape[:3]
     k = TILE_K[w.dtype]
     _, nk, nco = packed_shape(P, Co, Ci, w.dtype)[:3]
+    if w.dtype == torch.bfloat16:
+        w9 = F.pad(wp.permute(0, 3, 4, 1, 2),
+                   (0, nk * k - Ci, 0, nco * TILE_N - Co))
+        # [P, ty, tx, block, n//8, n%8, chunk, t, j, k//8, e]: channel
+        # 8t + 4j + 2(k//8) + e of the chunk
+        t = w9.reshape(P, 3, 3, nco, TILE_N // 8, 8, nk, 4, 2, 2, 2)
+        t = t.permute(0, 6, 3, 1, 2, 8, 4, 9, 5, 7, 10)
+        return t.reshape(packed_shape(P, Co, Ci, w.dtype)).contiguous()
     w9 = wp.permute(0, 3, 4, 1, 2).reshape(P, 9, Co, Ci)
     w9 = F.pad(w9, (0, nk * k - Ci, 0, nco * TILE_N - Co))
     t = w9.reshape(P, 9, nco, TILE_N // 8, 8, nk, 2, k // 2).permute(
         0, 5, 2, 1, 3, 6, 4, 7)
-    if w.dtype == torch.bfloat16:
-        return t.contiguous()
     hi = _round_tf32(t)
     return torch.stack([hi, _round_tf32(t - hi)], dim=3)
 
 
-def plan(B, H, W, Ci, Co, phases, sms=132, tile_k=8):
-    """(tile rows, tile columns, K splits) for one launch. 16x16-pixel tiles
-    from 64^2 up (each weight tile feeds 256 pixels), 8x16 where W >= 16,
-    8x8 below; splits double while the grid stays within one wave of
-    ``sms`` blocks (one block fits an SM) and each split keeps >= 4 K
-    steps of ``tile_k`` channels (>= 2 at the last doubling)."""
+def plan(B, H, W, Ci, Co, phases, sms=132):
+    """(tile rows, tile columns, K splits) for one launch of the f32
+    kernel. 16x16-pixel tiles from 64^2 up (each weight tile feeds 256
+    pixels), 8x16 where W >= 16, 8x8 below; splits double while the grid
+    stays within one wave of ``sms`` blocks (one block fits an SM) and each
+    split keeps >= 4 K steps of 8 channels (>= 2 at the last doubling)."""
     th, tw = (16, 16) if H * W >= 64 * 64 else (8, 16) if W >= 16 else (8, 8)
     blocks = (B * phases * -(-H // th) * -(-W // tw)
               * -(-Co // TILE_N))
-    steps = -(-Ci // tile_k)
+    steps = -(-Ci // TILE_K[torch.float32])
     splits = 1
     while blocks * splits * 2 <= sms and steps >= 4 * splits:
         splits *= 2
     return th, tw, splits
+
+
+def plan_bf16(B, H, W, Ci, Co, phases, sms=132):
+    """(tile rows, tile columns, K splits) for one launch of the bf16
+    kernel, by a cost model fitted to its times on an H100
+    (``scripts/sweep_bf16_plans.py``). For each pixel tile (8x8, 8x16,
+    16x16) the K splits (each a block of one cluster, summed in shared
+    memory) double while the grid stays within one wave of ``sms`` blocks
+    and each split keeps >= 2 chunks of 32 channels; clusters of 8 only up
+    to 64 blocks in all (the card does not hold more of them at once). The
+    plan takes the tile with the least cost, waves x (chunks a split x the
+    tile's pixels and 1/10 of its halo, in 64s, + 4 for the block's fill
+    and epilogue + splits / 4 for the cluster's sum), the smaller tile on a
+    tie."""
+    chunks = -(-Ci // TILE_K[torch.bfloat16])
+    best = None
+    for th, tw in ((8, 8), (8, 16), (16, 16)):
+        blocks = B * phases * -(-H // th) * -(-W // tw) * -(-Co // TILE_N)
+        splits = 1
+        while (splits < MAX_CLUSTER and blocks * splits * 2 <= sms
+               and chunks >= 4 * splits
+               and not (splits * 2 == MAX_CLUSTER and blocks * MAX_CLUSTER > 64)):
+            splits *= 2
+        waves = -(-blocks * splits // sms)
+        pixels = th * tw + 0.1 * (th + 2) * (tw + 2)
+        cost = waves * (chunks / splits * pixels / 64 + 4 + splits / 4)
+        if best is None or cost < best[0]:
+            best = (cost, (th, tw, splits))
+    return best[1]
 
 
 @functools.lru_cache(maxsize=None)
@@ -182,50 +231,64 @@ def _nvcc() -> str:
     return found
 
 
-def library_path() -> Path:
-    """Build output named by a digest of the source and the flags, so an
-    edited source never loads a stale library."""
-    h = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"libpatch_mod_conv3_{h.hexdigest()[:16]}.so"
+def library_path(dtype=torch.float32) -> Path:
+    """Build output of ``dtype``'s source, named by a digest of every
+    source and the flags, so an edited source never loads a stale
+    library."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in SOURCES.values():
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"lib{SOURCES[dtype].stem}_{h.hexdigest()[:16]}.so"
 
 
-def build() -> tuple[Path, str]:
-    """Compile the kernel if its library is missing. Returns the library
-    path and the compiler's ``-Xptxas -v`` report (registers, shared memory,
-    spills); the report is kept beside the library."""
-    out = library_path()
-    log = out.with_suffix(".log")
-    if out.exists() and log.exists():
-        return out, log.read_text()
+def build() -> tuple[list[Path], str]:
+    """Compile every library that is missing, one ``nvcc`` per source, all
+    started together. Returns the library paths and the compilers'
+    ``-Xptxas -v`` reports (registers, shared memory, spills, wgmma
+    serialisation); each report is kept beside its library."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}\n"
-            f"{res.stdout}{res.stderr}"
-        )
-    report = res.stdout + res.stderr
-    log.write_text(report)
-    os.replace(tmp, out)
-    return out, report
+    jobs = {}
+    for dt, src in SOURCES.items():
+        out = library_path(dt)
+        if out.exists() and out.with_suffix(".log").exists():
+            continue
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+        jobs[dt] = (cmd, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    failed = []
+    for dt, (cmd, tmp, proc) in jobs.items():
+        report = proc.communicate()[0]
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+                          f"{report}")
+            continue
+        out = library_path(dt)
+        out.with_suffix(".log").write_text(report)
+        os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    paths = [library_path(dt) for dt in SOURCES]
+    return paths, "".join(p.with_suffix(".log").read_text() for p in paths)
 
 
 def _load():
-    global _lib
+    global _libs
     with _lib_lock:
-        if _lib is None:
-            path, _ = build()
-            lib = ctypes.CDLL(str(path))
-            for name in _ENTRY.values():
-                fn = getattr(lib, name)
-                fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [
-                    ctypes.c_void_p
-                ]
+        if _libs is None:
+            build()
+            libs = {dt: ctypes.CDLL(str(library_path(dt))) for dt in SOURCES}
+            ptr, i32 = ctypes.c_void_p, ctypes.c_int
+            argtypes = {
+                torch.float32: [ptr] * 6 + [i32] * 9 + [ptr],
+                torch.bfloat16: [ptr] * 5 + [i32] * 9 + [ptr],
+            }
+            for dt, name in _ENTRY.items():
+                fn = getattr(libs[dt], name)
+                fn.argtypes = argtypes[dt]
                 fn.restype = ctypes.c_int
-            _lib = lib
-    return _lib
+            _libs = libs
+    return _libs
 
 
 def _check(name, t, shape, device, dtype):
@@ -269,21 +332,31 @@ def _launch(x, w, smap, dmap, packed=None, up=False):
                          f"{chunk} (16-byte copies)")
     if dev.type != "cuda":
         raise ValueError(f"the kernel runs on a CUDA device, not {dev}")
-    lib = _load()
-    th, tw, splits = plan(B, H, W, Ci, Co, P, _sm_count(dev.index), TILE_K[dt])
+    lib = _load()[dt]
     out = torch.empty((B, s * H, s * W, Co), dtype=dt, device=dev)
-    part = None
-    if splits > 1:
-        part = torch.empty((splits, *out.shape), dtype=torch.float32,
-                           device=dev)
+    dptr = None if dmap is None else dmap.data_ptr()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = getattr(lib, _ENTRY[dt])(
-            x.data_ptr(), packed.data_ptr(), smap.data_ptr(),
-            None if dmap is None else dmap.data_ptr(), out.data_ptr(),
-            None if part is None else part.data_ptr(),
-            B, H, W, Ci, Co, int(up), th, tw, splits, stream,
-        )
+        if dt == torch.bfloat16:
+            for name, t in (("x", x), ("smap", smap), ("dmap", dmap)):
+                if t is not None and t.data_ptr() % 16:
+                    raise ValueError(f"{name} must be 16-byte aligned (TMA)")
+            th, tw, splits = plan_bf16(B, H, W, Ci, Co, P, _sm_count(dev.index))
+            err = lib.patch_mod_conv3_bf16(
+                x.data_ptr(), packed.data_ptr(), smap.data_ptr(), dptr,
+                out.data_ptr(), B, H, W, Ci, Co, int(up), th, tw, splits, stream,
+            )
+        else:
+            th, tw, splits = plan(B, H, W, Ci, Co, P, _sm_count(dev.index))
+            part = None
+            if splits > 1:
+                part = torch.empty((splits, *out.shape), dtype=torch.float32,
+                                   device=dev)
+            err = lib.patch_mod_conv3_f32(
+                x.data_ptr(), packed.data_ptr(), smap.data_ptr(), dptr,
+                out.data_ptr(), None if part is None else part.data_ptr(),
+                B, H, W, Ci, Co, int(up), th, tw, splits, stream,
+            )
     if err != 0:
         raise RuntimeError(f"{_ENTRY[dt]} launch failed: cudaError {err}")
     patch_mod_conv3_nhwc.launches += 1

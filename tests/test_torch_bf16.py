@@ -7,7 +7,9 @@
   once).
 - The bf16 polyphase composite against the JAX ``_composite_up_kernel``:
   bit for bit, or one bf16 ulp where the f32 sums of the two round apart.
-- The bf16 kernel's weight tiles, read as the kernel indexes them, and the
+- The bf16 kernel's weight tiles, read as the kernel indexes them; its
+  sum written out on the CPU with that indexing (chunks, tap rows, k16
+  slices, the channel permutation) against the plain version; the
   wrapper's refusal of mixed dtypes.
 - Net3 in bf16 at 128^2 (K = 9) against the JAX package in bf16 and against
   the port in f32, at the JAX package's own bf16 gate
@@ -112,30 +114,89 @@ def test_bf16_composite_up_kernel_matches_jax():
     assert np.mean(gb == wb) > 0.99
 
 
+def _kernel_channel(j, k):
+    """Input channel (within a 32-channel chunk) at position k of k16 slice
+    j, as the bf16 kernel indexes it: thread t reads channels 8t .. 8t+7 of
+    a pixel, and word 2j (2j+1) of them is its A pair (2t, 2t+1)
+    ((2t+8, 2t+9)) of slice j."""
+    return 8 * (k % 8 // 2) + 4 * j + 2 * (k // 8) + k % 2
+
+
 def test_bf16_weight_tiles_read_as_the_kernel_reads_them():
-    """Tile (phase, K step, block), tap, row n, column k sits at
-    ((((p nk + s) nco + blk) 9 + tap) 16 + n//8) 128 + (k//8) 64 + (n%8) 8
-    + k%8: the 8x16-byte core matrices of wgmma's K-major layout, 128 bytes
-    apart along K (LBO) and 256 along N (SBO); zero past Co and Ci."""
+    """Tile (phase, chunk, block), tap (ty, tx), slice j, row n, column k
+    sits at ((((((p nk + c) nco + blk) 3 + ty) 3 + tx) 2 + j) 16 + n//8) 128
+    + (k//8) 64 + (n%8) 8 + k%8: the 8x16-byte core matrices of wgmma's
+    K-major layout, 128 bytes apart along K (LBO) and 256 along N (SBO), a
+    slice 4 KB, a tap 8 KB, a tap row (one weight stage) 24 KB; position k
+    of slice j holds the chunk's channel ``_kernel_channel(j, k)``; zero
+    past Co and Ci."""
     rng = np.random.RandomState(2)
     P, Co, Ci = 4, 136, 40
     w = torch.from_numpy(rng.randn(P, Co, Ci, 3, 3).astype(np.float32)).to(BF)
     packed = tpmc.pack_weight(w)
     assert packed.dtype == BF and packed.is_contiguous()
     assert tuple(packed.shape) == tpmc.packed_shape(P, Co, Ci, BF)
-    nk, nco = -(-Ci // 16), -(-Co // 128)
-    p, s, blk, tap, n, k = np.meshgrid(
-        np.arange(P), np.arange(nk), np.arange(nco), np.arange(9),
-        np.arange(128), np.arange(16), indexing="ij")
-    off = (((((p * nk + s) * nco + blk) * 9 + tap) * 16 + n // 8) * 128
-           + (k // 8) * 64 + (n % 8) * 8 + k % 8)
-    o, i = blk * 128 + n, s * 16 + k
+    nk, nco = -(-Ci // 32), -(-Co // 128)
+    p, c, blk, ty, tx, j, n, k = np.meshgrid(
+        np.arange(P), np.arange(nk), np.arange(nco), np.arange(3), np.arange(3),
+        np.arange(2), np.arange(128), np.arange(16), indexing="ij")
+    off = ((((((((p * nk + c) * nco + blk) * 3 + ty) * 3 + tx) * 2 + j) * 16
+             + n // 8) * 128) + (k // 8) * 64 + (n % 8) * 8 + k % 8)
+    o, i = blk * 128 + n, c * 32 + _kernel_channel(j, k)
     inside = (o < Co) & (i < Ci)
     wn = w.float().numpy()
     want = np.where(inside, wn[p, np.minimum(o, Co - 1), np.minimum(i, Ci - 1),
-                               tap // 3, tap % 3], 0.0)
+                               ty, tx], 0.0)
     got = packed.float().reshape(-1).numpy()[off]
     np.testing.assert_array_equal(got, want)
+    assert sorted(_kernel_channel(jj, kk) for jj in (0, 1) for kk in range(16)) == list(range(32))
+
+
+@pytest.mark.parametrize("up", [False, True])
+def test_bf16_kernel_indexing_computes_the_conv(up):
+    """The bf16 kernel's sum written out on the CPU as it indexes its
+    operands: per 32-channel chunk, tap and k16 slice, A from the zero-
+    padded halo by ``_kernel_channel`` (x*smap rounded once), B from the
+    packed tile at the core-matrix offsets, f32 sums; then dmap in f32 and
+    one rounding. Equals the bf16 plain version within one bf16 ulp (both
+    round one f32 sum, in another order)."""
+    rng = np.random.RandomState(3)
+    B, H, W, Ci, Co = 1, 5, 6, 40, 136
+    P, s = (4, 2) if up else (1, 1)
+    x = torch.from_numpy(rng.randn(B, H, W, Ci).astype(np.float32)).to(BF)
+    w = torch.from_numpy((rng.randn(*((P,) if up else ()), Co, Ci, 3, 3)
+                          / np.sqrt(9 * Ci)).astype(np.float32)).to(BF)
+    smap = torch.from_numpy((1 + 0.5 * rng.randn(B, s * H, s * W, Ci)).astype(np.float32)).to(BF)
+    dmap = torch.from_numpy((0.5 + rng.rand(B, s * H, s * W, Co)).astype(np.float32)).to(BF)
+    nk, nco = -(-Ci // 32), -(-Co // 128)
+    tiles = tpmc.pack_weight(w).float().numpy().reshape(P, nk, nco, 3, 3, 2, 16, 2, 8, 8)
+    # B[k, n] of slice j: tile[..., j, n//8, k//8, n%8, k%8]
+    Bm = tiles.transpose(0, 1, 2, 3, 4, 5, 7, 9, 6, 8).reshape(P, nk, nco, 3, 3, 2, 16, 128)
+    xp = np.zeros((B, H + 2, W + 2, nk * 32), np.float32)
+    xp[:, 1:-1, 1:-1, :Ci] = x.float().numpy()
+    sm = np.zeros((B, s * H, s * W, nk * 32), np.float32)
+    sm[..., :Ci] = smap.float().numpy()
+    chan = np.array([[_kernel_channel(j, k) for k in range(16)] for j in (0, 1)])
+    out = np.zeros((B, s * H, s * W, Co), np.float32)
+    for ph in range(P):
+        a, b = ph >> 1, ph & 1
+        acc = np.zeros((B, H, W, nco * 128), np.float32)
+        for c in range(nk):
+            for ty in range(3):
+                for tx in range(3):
+                    for j in range(2):
+                        ch = 32 * c + chan[j]
+                        A = (torch.from_numpy(xp[:, ty:ty + H, tx:tx + W][..., ch])
+                             .to(BF) * torch.from_numpy(sm[:, a::s, b::s][..., ch]).to(BF))
+                        for blk in range(nco):
+                            acc[..., blk * 128:(blk + 1) * 128] += (
+                                A.float().numpy() @ Bm[ph, c, blk, ty, tx, j])
+        y = acc[..., :Co] * dmap.float().numpy()[:, a::s, b::s]
+        out[:, a::s, b::s] = torch.from_numpy(y).to(BF).float().numpy()
+    plain = tpmc.patch_mod_conv3_up_nhwc_plain if up else tpmc.patch_mod_conv3_nhwc_plain
+    want = plain(x, w, smap, dmap).float().numpy()
+    assert np.abs(out - want).max() <= _ulp(np.abs(want).max())
+    assert np.mean(out == want) > 0.95
 
 
 def test_bf16_wrapper_refuses_mixed_dtypes():

@@ -12,6 +12,7 @@ max |plain|: both sum in f32 and round once, so a result may land on the
 neighbouring bf16 value (one ulp is 2^-8 of the value).
 """
 
+import ctypes
 import math
 import types
 
@@ -225,6 +226,113 @@ def test_patch_mod_conv3_bf16_kernel_ragged_edges(card, B, H, W, Ci, Co):
         fn, plain = ((pmc.patch_mod_conv3_up_nhwc, pmc.patch_mod_conv3_up_nhwc_plain)
                      if up else (pmc.patch_mod_conv3_nhwc, pmc.patch_mod_conv3_nhwc_plain))
         _check(fn(x, w, smap, None), plain(x, w, smap, None), tol=8e-3)
+
+
+def _bf16_entries(up):
+    return ((pmc.patch_mod_conv3_up_nhwc, pmc.patch_mod_conv3_up_nhwc_plain)
+            if up else (pmc.patch_mod_conv3_nhwc, pmc.patch_mod_conv3_nhwc_plain))
+
+
+# every (pixel tile, K splits) that plan_bf16 can pick
+BF16_CONFIGS = [(th, tw, splits) for th, tw in ((8, 8), (8, 16), (16, 16))
+                for splits in (1, 2, 4, 8)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("up", [False, True])
+@pytest.mark.parametrize("th,tw,splits", BF16_CONFIGS)
+def test_patch_mod_conv3_bf16_every_tile_and_cluster(card, monkeypatch, th, tw,
+                                                     splits, up):
+    """The bf16 kernel at each tile and split-K cluster (forced past the
+    plan), on a ragged grid (H, W not multiples of the tile; 3 tiles, not a
+    multiple of any cluster of 2-8), Co = 192 and 8 chunks of 32 channels:
+    against the plain version, and bit for bit across two calls (the
+    cluster's split sum runs in rank order)."""
+    monkeypatch.setattr(pmc, "plan_bf16", lambda *a: (th, tw, splits))
+    H, W = 2 * th + 3, tw - 3  # 3 x 1 tiles, each overhanging the image
+    assert -(-H // th) * -(-W // tw) == 3
+    x, w, smap, dmap = (t.bfloat16() for t in _inputs(H, 256, 192, card, B=2, W=W, up=up))
+    fn, plain = _bf16_entries(up)
+    a = fn(x, w, smap, dmap)
+    b = fn(x, w, smap, dmap)
+    _check(a, plain(x, w, smap, dmap), tol=8e-3)
+    assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,W,Ci,Co", [(1, 9, 13, 40, 192), (2, 17, 33, 24, 192),
+                                         (1, 19, 21, 40, 136), (1, 64, 64, 24, 8)])
+def test_patch_mod_conv3_bf16_kernel_ragged_chunks(card, B, H, W, Ci, Co):
+    """Ci = 24 and 40 (a part-filled 32-channel chunk), Co = 192, 136 and 8
+    (a part-filled 128-channel block, scalar stores past a whole 8), H and
+    W not multiples of any tile; both entries, with and without dmap."""
+    for up in (False, True):
+        x, w, smap, dmap = (t.bfloat16() for t in _inputs(H, Ci, Co, card, B=B, W=W, up=up))
+        fn, plain = _bf16_entries(up)
+        _check(fn(x, w, smap, dmap), plain(x, w, smap, dmap), tol=8e-3)
+        _check(fn(x, w, smap, None), plain(x, w, smap, None), tol=8e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("up", [False, True])
+@pytest.mark.parametrize("H,Ci,Co", [(4, 512, 512), (16, 512, 512), (64, 512, 256)])
+def test_patch_mod_conv3_bf16_repeats_bitwise_at_the_plan(card, H, Ci, Co, up):
+    """The plan's own launches at batch 1 and 8: the cluster split-K of
+    4^2 and 16^2 and the unsplit 16x16 tiles of 64^2 (64->128 up); two
+    launches agree bit for bit."""
+    for B in (1, 8):
+        x, w, smap, dmap = (t.bfloat16() for t in _inputs(H, Ci, Co, card, B=B, up=up))
+        fn, _ = _bf16_entries(up)
+        a = fn(x, w, smap, dmap)
+        b = fn(x, w, smap, dmap)
+        torch.cuda.synchronize()
+        assert torch.equal(a, b)
+
+
+def _bf16_product(x, s):
+    """The bf16 kernel's A-operand product alone (mul.rn.bf16x2, through
+    the library's test entry ``patch_mod_conv3_bf16_product``): x * s
+    elementwise on two contiguous bf16 CUDA tensors of one even size."""
+    fn = pmc._load()[torch.bfloat16].patch_mod_conv3_bf16_product
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = torch.empty_like(x)
+    err = fn(x.data_ptr(), s.data_ptr(), out.data_ptr(), x.numel() // 2,
+             torch.cuda.current_stream(x.device).cuda_stream)
+    assert err == 0, f"cudaError {err}"
+    return out
+
+
+@pytest.mark.cuda
+def test_bf16_product_is_the_f32_product_rounded_once(card):
+    """The kernel's A operand (mul.rn.bf16x2) bit for bit against the exact
+    f32 product of two bf16 values rounded once to bf16, on main-path
+    values (x ~ N(0,1), smap ~ 1 + N(0,0.5^2)) and on values spread over
+    2^-60 .. 2^60 of both signs."""
+    g = torch.Generator(device=card).manual_seed(0)
+    n = 1 << 22
+    x = torch.randn(n, generator=g, device=card).bfloat16()
+    s = (1 + 0.5 * torch.randn(n, generator=g, device=card)).bfloat16()
+    mag = torch.exp2(torch.randint(-60, 61, (2, n), generator=g, device=card).float())
+    sign = torch.randint(0, 2, (2, n), generator=g, device=card).float() * 2 - 1
+    u = (sign * mag * (1 + torch.rand((2, n), generator=g, device=card))).bfloat16()
+    for a, b in ((x, s), (u[0], u[1])):
+        got = _bf16_product(a, b)
+        want = (a.float() * b.float()).bfloat16()
+        torch.cuda.synchronize()
+        assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+
+
+@pytest.mark.cuda
+def test_patch_mod_conv3_bf16_refused_cluster_raises(card, monkeypatch):
+    """A cluster the C entry refuses (16 splits, not portable, though Ci
+    has 16 chunks) raises; no launch is counted."""
+    monkeypatch.setattr(pmc, "plan_bf16", lambda *a: (8, 8, 16))
+    x, w, smap, dmap = (t.bfloat16() for t in _inputs(8, 512, 64, card))
+    before = pmc.patch_mod_conv3_nhwc.launches
+    with pytest.raises(RuntimeError, match="launch failed"):
+        pmc.patch_mod_conv3_nhwc(x, w, smap, dmap)
+    assert pmc.patch_mod_conv3_nhwc.launches == before
 
 
 @pytest.mark.cuda

@@ -198,6 +198,72 @@ def test_plan_splits_k_to_fill_the_card(B, H, W, Ci, Co, P, splits):
     assert -(-Ci // 8) >= 2 * got or got == 1
 
 
+# the 13 main-path launches (input H=W, Ci, Co, phases), and the f32 plan
+# the kernel has taken at each since it was redesigned, at B = 1 and 8
+MAIN_PATH = [(4, 512, 512, 1), (4, 512, 512, 4), (8, 512, 512, 1),
+             (8, 512, 512, 4), (16, 512, 512, 1), (16, 512, 512, 4),
+             (32, 512, 512, 1), (32, 512, 512, 4), (64, 512, 512, 1),
+             (64, 512, 256, 4), (128, 256, 256, 1), (128, 256, 128, 4),
+             (256, 128, 128, 1)]
+F32_PLANS = {
+    1: [(8, 8, 32), (8, 8, 8), (8, 8, 32), (8, 8, 8), (8, 16, 16), (8, 16, 4),
+        (8, 16, 4), (8, 16, 1), (16, 16, 2), (16, 16, 1), (16, 16, 1),
+        (16, 16, 1), (16, 16, 1)],
+    8: [(8, 8, 4), (8, 8, 1), (8, 8, 4), (8, 8, 1), (8, 16, 2), (8, 16, 1),
+        (8, 16, 1), (8, 16, 1), (16, 16, 1), (16, 16, 1), (16, 16, 1),
+        (16, 16, 1), (16, 16, 1)],
+}
+
+
+@pytest.mark.parametrize("B", [1, 8])
+def test_f32_plans_are_unchanged(B):
+    """The f32 kernel's tiles and splits at every main-path launch."""
+    got = [tpmc.plan(B, H, H, Ci, Co, P) for H, Ci, Co, P in MAIN_PATH]
+    assert got == F32_PLANS[B]
+
+
+@pytest.mark.parametrize("B,H,W,Ci,Co,P", [
+    (B, H, H, Ci, Co, P) for B in (1, 8) for H, Ci, Co, P in MAIN_PATH] + [
+    (1, 3, 5, 200, 136, 1), (2, 5, 7, 24, 40, 4), (1, 70, 60, 40, 192, 1),
+    (1, 24, 8, 256, 192, 4), (1, 9, 130, 16, 8, 1)])
+def test_bf16_plan_fits_clusters_to_the_grid(B, H, W, Ci, Co, P):
+    """The bf16 plan: one of the kernel's pixel tiles; a portable cluster
+    (<= 8 blocks) of K splits, each split >= 2 chunks of 32 channels (an
+    even share, none empty), the grid within one wave of 132 blocks when
+    it splits and clusters of 8 only up to 64 blocks. The C entry launches
+    S blocks per tile, so its grid is a whole number of clusters."""
+    th, tw, splits = tpmc.plan_bf16(B, H, W, Ci, Co, P)
+    assert (th, tw) in ((8, 8), (8, 16), (16, 16))
+    tiles = -(-H // th) * -(-W // tw)
+    blocks = B * P * tiles * -(-Co // 128)
+    chunks = -(-Ci // 32)
+    assert splits in (1, 2, 4, 8)
+    assert splits == 1 or (blocks * splits <= 132 and chunks >= 2 * splits)
+    assert splits < 8 or blocks * splits <= 64
+    # the C entry's split of the chunks: an even share each, none empty
+    shares = [(r + 1) * chunks // splits - r * chunks // splits for r in range(splits)]
+    assert sum(shares) == chunks and min(shares) >= 1
+
+
+BF16_MAIN_PATH_PLANS = {
+    1: [(8, 8, 8), (8, 8, 4), (8, 8, 8), (8, 8, 4), (8, 8, 4), (8, 8, 2),
+        (8, 8, 2), (16, 16, 2), (16, 16, 2), (16, 16, 1), (16, 16, 1),
+        (16, 16, 1), (16, 16, 1)],
+    8: [(8, 8, 4), (8, 8, 1), (8, 8, 4), (8, 8, 1), (8, 8, 1), (16, 16, 1),
+        (16, 16, 1), (16, 16, 1), (16, 16, 1), (16, 16, 1), (16, 16, 1),
+        (16, 16, 1), (16, 16, 1)],
+}
+
+
+@pytest.mark.parametrize("B", [1, 8])
+def test_bf16_plan_at_the_main_path(B):
+    """The plans the cost model picks at the 13 main-path launches: split
+    K in clusters of 2-8 below 64^2 at B = 1, 16x16 tiles unsplit from
+    64->128 up."""
+    got = [tpmc.plan_bf16(B, H, H, Ci, Co, P) for H, Ci, Co, P in MAIN_PATH]
+    assert got == BF16_MAIN_PATH_PLANS[B]
+
+
 def test_modulated_conv_weights_cache_rebuilds_after_load_state_dict():
     """The kernel's weights (phase kernels and packed layout) are built once
     per weight and rebuilt after an in-place update of the weight; where
