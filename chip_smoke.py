@@ -42,7 +42,23 @@ Phases, in order; the first that fails ends the run with a non-zero exit:
      3 steps in f32, within 1e-3 relative;
  14. ``swap_batch`` with ``bf16``: the 8 pairs of phase 8 in one chunk of 8
      and in chunks of 1, 13 launches of the bf16 kernel per chunk: swaps/s
-     and peak memory.
+     and peak memory;
+ 15. training at full width: both kernels against their plain versions
+     at training's batch 2 at the 13 stages (f32 and bf16); then the
+     ``Coach`` (Net3 1024^2, K=13, D 1024,
+     batch 2, synthetic faces, Adam, the default loss weights, D every
+     step and R1 every 2nd) runs ``train()`` for 5 steps in f32 inside a
+     one-process NCCL group (DDP around Net3 and D, as ``torchrun
+     --nproc_per_node 1`` would), then in ``bf16``: warm ms per G, D and
+     R1 step, peak memory, 13 kernel launches per G and per D step (bf16
+     ones under ``bf16``), the two costs of the masked conv's backward
+     (building the kernel's weights per call; the plain version's
+     backward) and finite losses; then the f32 run's checkpoint loads into
+     a 1024^2 swap (13 launches);
+ 16. training at 64^2 on the card against the CPU: one G step and one D
+     step from the same weights, batch and noise: the losses within 1e-4
+     of max(|CPU value|, 1), the signs of the updates differing in at most
+     1% of the elements.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
 line before it is the per-kernel JSON summary. TF32 is off throughout.
@@ -688,8 +704,8 @@ def _timed_invertion(opt, sample):
     marks = []
     step = optimization.OptaxRule.step
 
-    def marked(rule, params, grads):
-        step(rule, params, grads)
+    def marked(rule):
+        step(rule)
         torch.cuda.synchronize()
         marks.append((time.perf_counter(), _launch_counts()[0]))
 
@@ -755,6 +771,254 @@ def phase_inversion():
         raise SystemExit(f"FAIL inversion: card vs CPU losses {rel:.3e} apart")
 
 
+# training: loss weights of the training options' defaults
+TRAIN_STEPS = 5  # steps 0-4: D every step, R1 at steps 0, 2, 4
+TRAIN_DIR = os.path.join("work_dir", "chip_smoke_train")
+
+
+def _train_opts(exp_dir, **kw):
+    from e4s_tpu_torch.options.train_options import TrainOptions
+
+    opts = TrainOptions().parse([
+        "--exp_dir", exp_dir, "--dataset_name", "synthetic", "--d_every", "1",
+        "--d_reg_every", "2", "--image_interval", "0", "--board_interval", "1",
+        "--checkpoint_path", "", "--stylegan_weights", ""])
+    for k, v in kw.items():
+        setattr(opts, k, v)
+    return opts
+
+
+class _StepMeter:
+    """Wraps a Coach's G, D and R1 steps: each ends in a synchronise and
+    records its host ms, the kernel launches inside it (all, bf16) and its
+    losses; and, inside a G step, the ms (CUDA events) of building the
+    masked conv's kernel weights per call and of the kernel's plain
+    backward (``_PatchModConv3.backward``)."""
+
+    def __init__(self, coach):
+        from e4s_tpu_torch.models import stylegan2
+        from e4s_tpu_torch.ops import patch_modconv as pmc
+
+        self.rows = {"g": [], "d": [], "r1": []}
+        self.events = {"build": [], "backward": []}
+        self._undo = []
+        for name, key in (("_g_step", "g"), ("_d_step", "d"), ("_d_r1_step", "r1")):
+            setattr(coach, name, self._timed(getattr(coach, name), key))
+
+        def evented(fn, key):
+            def run(*a, **kw):
+                start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                start.record()
+                out = fn(*a, **kw)
+                end.record()
+                self.events[key].append((start, end))
+                return out
+            return run
+
+        build, bwd = stylegan2.masked_conv_weights, pmc._PatchModConv3.backward
+        stylegan2.masked_conv_weights = evented(build, "build")
+        pmc._PatchModConv3.backward = staticmethod(evented(bwd, "backward"))
+        self._undo = [(stylegan2, "masked_conv_weights", build),
+                      (pmc._PatchModConv3, "backward", staticmethod(bwd))]
+
+    def close(self):
+        for obj, name, fn in self._undo:
+            setattr(obj, name, fn)
+
+    def _timed(self, fn, key):
+        def run(*a, **kw):
+            torch.cuda.synchronize()
+            _reset_launches()
+            for ev in self.events.values():
+                ev.clear()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            row = dict(ms=ms, launches=_launch_counts(),
+                       losses={k: float(v) for k, v in out.items()})
+            if key == "g":
+                row.update({k: sum(a.elapsed_time(b) for a, b in ev)
+                            for k, ev in self.events.items()},
+                           n_build=len(self.events["build"]),
+                           n_backward=len(self.events["backward"]))
+            self.rows[key].append(row)
+            return out
+        return run
+
+
+def _train_run(label, opts):
+    """``Coach.train()`` for TRAIN_STEPS steps; checks and prints the steps;
+    returns the Coach."""
+    from e4s_tpu_torch.training.coach import Coach
+
+    t0 = time.perf_counter()
+    coach = Coach(opts)
+    torch.cuda.synchronize()
+    log(f"[train] {label}: Coach built in {time.perf_counter() - t0:.1f} s "
+        f"(DDP {coach.distributed}, world {coach.world}, latent_avg from "
+        f"{opts.latent_avg_samples} samples)")
+    meter = _StepMeter(coach)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        coach.train(max_steps=TRAIN_STEPS - 1)
+    finally:
+        meter.close()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    rows = meter.rows
+    bf16 = opts.bf16
+    log(f"[train] {label}: {TRAIN_STEPS} steps with validation and two "
+        f"checkpoints in {time.perf_counter() - t0:.1f} s; peak device memory "
+        f"{peak:.2f} GiB")
+    for key in ("g", "d", "r1"):
+        for i, r in enumerate(rows[key]):
+            extra = ""
+            if key == "g":
+                extra = (f"; kernel weights built {r['n_build']}x in "
+                         f"{r['build']:.2f} ms, plain backward {r['n_backward']}x "
+                         f"in {r['backward']:.2f} ms")
+            log(f"[train] {label} {key} step {i}: {r['ms']:.1f} ms, launches "
+                f"{r['launches'][0]} (bf16 {r['launches'][1]}){extra}; "
+                + " ".join(f"{k}={v:.5g}" for k, v in r["losses"].items()))
+    n_r1 = (TRAIN_STEPS + 1) // 2
+    if [len(rows[k]) for k in ("g", "d", "r1")] != [TRAIN_STEPS, TRAIN_STEPS, n_r1]:
+        raise SystemExit(f"FAIL train {label}: steps {[len(v) for v in rows.values()]}")
+    for key in ("g", "d", "r1"):
+        for r in rows[key]:
+            if not all(np.isfinite(v) for v in r["losses"].values()):
+                raise SystemExit(f"FAIL train {label}: non-finite {key} losses")
+            want = 0 if key == "r1" else PMC_LAUNCHES_PER_SWAP
+            if r["launches"] != (want, want if bf16 else 0):
+                raise SystemExit(f"FAIL train {label}: {key} step launches "
+                                 f"{r['launches']}, want {want} ({'bf16' if bf16 else 'f32'})")
+    warm = {k: [r["ms"] for r in v[1:]] for k, v in rows.items()}
+    g = rows["g"][1:]
+    g_ms = float(np.mean([r["ms"] for r in g]))
+    build = float(np.mean([r["build"] for r in g]))
+    bwd = float(np.mean([r["backward"] for r in g]))
+    log(f"[train] {label} ms per step, warm: G "
+        f"{', '.join(f'{t:.1f}' for t in warm['g'])}; D "
+        f"{', '.join(f'{t:.1f}' for t in warm['d'])}; R1 "
+        f"{', '.join(f'{t:.1f}' for t in warm['r1'])}")
+    log(f"[train] {label} masked-conv backward costs per G step (warm mean): "
+        f"kernel weights built per call {build:.2f} ms ({build / g_ms:.3f} of "
+        f"the step), plain backward {bwd:.2f} ms ({bwd / g_ms:.3f}); G step "
+        f"{g_ms:.1f} ms")
+    return coach
+
+
+def phase_training():
+    """Phase 15: 5 training steps at full width in f32 under a one-process
+    NCCL group (DDP), then in bf16; the f32 checkpoint loads into a swap."""
+    import shutil
+    import socket
+
+    import torch.distributed as dist
+
+    from e4s_tpu_torch.pipelines.face_swap import FaceSwapper
+    from e4s_tpu_torch.training.coach import init_distributed
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    # what torchrun --nproc_per_node 1 sets
+    env = dict(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), RANK="0",
+               WORLD_SIZE="1", LOCAL_RANK="0")
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    device = init_distributed("cuda")
+    try:
+        coach = _train_run("f32 DDP", _train_opts(os.path.join(TRAIN_DIR, "f32"),
+                                                   device=device))
+        ckpt = os.path.join(coach.checkpoint_dir, "best_model.pt")
+        del coach
+        torch.cuda.empty_cache()
+        coach = _train_run("bf16 DDP", _train_opts(os.path.join(TRAIN_DIR, "bf16"),
+                                                    device=device, bf16=True))
+        del coach
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k)
+            else:
+                os.environ[k] = v
+    opts = _opts(1024, 18)
+    opts.checkpoint_path = ckpt
+    swapper = FaceSwapper(opts, device="cuda")
+    _reset_launches()
+    img = np.asarray(swapper.swap(os.path.join(EXAMPLE, "source.jpg"),
+                                  os.path.join(EXAMPLE, "target.jpg")))
+    launches = _launch_counts()[0]
+    log(f"[train] trained checkpoint ({os.path.getsize(ckpt) / 2**30:.2f} GiB) -> "
+        f"FaceSwapper 1024^2: launches {launches}, mean pixel {img.mean():.2f}")
+    if img.shape != (1024, 1024, 3) or launches != PMC_LAUNCHES_PER_SWAP:
+        raise SystemExit(f"FAIL train: swap from the checkpoint {img.shape}, "
+                         f"{launches} launches")
+    del swapper
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+
+def phase_training_vs_cpu():
+    """Phase 16: one G and one D step at 64^2 on the card and on the CPU,
+    each from the same seeded weights, batch and noise (the registered
+    maps)."""
+    from e4s_tpu_torch.datasets.dataset import SyntheticFaceDataset, label_map_to_onehot
+    from e4s_tpu_torch.training.coach import Coach
+
+    ds = SyntheticFaceDataset(size=64)
+    img = np.stack([ds[i][0] for i in (1, 2)])
+    label = np.stack([ds[i][1] for i in (1, 2)]).astype(np.int32)
+    batch = (img, label, label_map_to_onehot(label, 12))
+    res = {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        opts = _train_opts(os.path.join(TRAIN_DIR, dev), device=dev, out_size=64,
+                           remaining_layer_idx=7, n_styles=10, encoder_size=64,
+                           id_lambda=0.0, face_parsing_lambda=0.0,
+                           w_norm_lambda=0.01, latent_avg_samples=256)
+        img_t, label_t, onehot_t = (torch.from_numpy(a).to(dev) for a in batch)
+        out = {}
+        for key in ("g", "d"):  # each from the seeded weights
+            coach = Coach(opts)
+            G = coach.net.G
+            noise = [getattr(G.noises, f"noise_{i}") for i in range(G.num_layers)]
+            if key == "g":
+                m, step = coach.net, lambda: coach._g_step(img_t, label_t, onehot_t,
+                                                           noise=noise)
+            else:
+                m, step = coach.D, lambda: coach._d_step(img_t, onehot_t, noise=noise)
+            before = {n: p.detach().cpu().clone() for n, p in m.named_parameters()}
+            _reset_launches()
+            losses = {k: float(v) for k, v in step().items()}
+            after = {n: p.detach().cpu() for n, p in m.named_parameters()}
+            out[key] = (losses, {n: torch.sign(after[n] - before[n]) for n in before},
+                        _launch_counts()[0])
+            del coach
+        res[dev] = out
+        log(f"[train] 64^2 steps on {dev}: {time.perf_counter() - t0:.1f} s (builds "
+            f"included); G launches {out['g'][2]}, D launches {out['d'][2]}")
+    for key in ("g", "d"):
+        (lc, sc, nc), (lp, sp, _) = res["cuda"][key], res["cpu"][key]
+        # relative above 1, absolute below: D's scores are means of logits
+        # near 0
+        errs = {k: abs(lc[k] - lp[k]) / max(abs(lp[k]), 1.0) for k in lp}
+        worst = max(errs, key=errs.get)
+        rel = errs[worst]
+        differ = sum(int((sc[n] != sp[n]).sum()) for n in sp)
+        total = sum(t.numel() for t in sp.values())
+        log(f"[train] 64^2 {key} step cuda vs cpu: losses within {rel:.3e} of "
+            f"max(|cpu|, 1) (limit 1e-4; worst {worst}: {lc[worst]:.7g} against "
+            f"{lp[worst]:.7g}); update signs differ in {differ} of {total} "
+            f"elements ({differ / total:.2e}, limit 1e-2); card launches {nc}")
+        if set(lc) != set(lp) or rel > 1e-4 or differ > 1e-2 * total or nc != 7:
+            raise SystemExit(f"FAIL train: 64^2 {key} step card vs CPU")
+
+
 def _per_swap_line(rows, launches, B=1, dtype=torch.float32):
     def total(key):
         return sum(r[key] for r in rows)
@@ -798,6 +1062,11 @@ def main():
     phase_edit_sweep()
     phase_inversion()
     phase_swap_batch(bf16=True)
+    # training's batch: the K-splits are planned from B
+    worst = max(worst, phase_kernel_vs_plain(B=2))
+    worst16 = max(worst16, phase_kernel_vs_plain(2, bf16))
+    phase_training()
+    phase_training_vs_cpu()
     row = dict(route="cuda", replaces="e4s_tpu/ops/pallas/modconv_tpu.py:39",
                library_ms=None)
     summary = {"kernels": [{

@@ -2,11 +2,11 @@
 
 The inverse of the JAX package's checkpoint converters
 (``e4s_tpu/utils/torch_convert.py``: ``convert_net3_state_dict``,
-``convert_bisenet``, ``convert_segnext``, ``convert_irse50``,
-``convert_unet``, ``convert_alexnet_features``, ``convert_vgg16_features``,
-``convert_lpips_lin``). The keys are the reference checkpoints', so the result
-loads into the port's modules with ``load_state_dict`` and converts back to
-the same JAX tree. Leaves are read with ``np.asarray``; JAX is not needed.
+``convert_discriminator``, ``convert_bisenet``, ``convert_segnext``,
+``convert_irse50``, ``convert_unet``, ``convert_alexnet_features``,
+``convert_vgg16_features``, ``convert_lpips_lin``). The keys are the
+reference checkpoints', so the result loads into the port's modules with
+``load_state_dict`` and converts back to the same JAX tree. Leaves are read with ``np.asarray``; JAX is not needed.
 """
 
 from __future__ import annotations
@@ -101,6 +101,39 @@ def generator_state_dict_from_jax(variables):
     port's ``Generator`` state_dict (the reference's ``g_ema`` keys)."""
     out = {}
     _generator(variables["params"], variables.get("noises", {}), out, "")
+    return out
+
+
+def _conv_layer(p, out, q, downsample, blur_kernel=(1, 3, 3, 1)):
+    """A JAX ``ConvLayer`` -> the reference's Sequential keys:
+    [Blur ``kernel``] conv ``weight`` (+ ``bias``) [activation ``bias``]."""
+    i = 0
+    if downsample:
+        out[f"{q}.0.kernel"] = make_kernel(blur_kernel)
+        i = 1
+    out[f"{q}.{i}.weight"] = _t(p["conv"]["weight"])
+    if "bias" in p["conv"]:
+        out[f"{q}.{i}.bias"] = _t(p["conv"]["bias"])
+    if "activate" in p:
+        out[f"{q}.{i + 1}.bias"] = _t(p["activate"]["bias"])
+
+
+def discriminator_state_dict_from_jax(params):
+    """The JAX ``Discriminator`` params -> the port's ``Discriminator``
+    state_dict (the reference's ``d`` keys)."""
+    out = {}
+    _conv_layer(params["convs_0"], out, "convs.0", False)
+    j = 1
+    while f"convs_{j}" in params:
+        b = params[f"convs_{j}"]
+        _conv_layer(b["conv1"], out, f"convs.{j}.conv1", False)
+        _conv_layer(b["conv2"], out, f"convs.{j}.conv2", True)
+        _conv_layer(b["skip"], out, f"convs.{j}.skip", True)
+        j += 1
+    _conv_layer(params["final_conv"], out, "final_conv", False)
+    for i in (0, 1):
+        out[f"final_linear.{i}.weight"] = _t(params[f"final_linear_{i}"]["weight"])
+        out[f"final_linear.{i}.bias"] = _t(params[f"final_linear_{i}"]["bias"])
     return out
 
 
@@ -279,10 +312,13 @@ VGG16_CONV_IDS = (0, 2, 5, 7, 10, 12, 14, 17, 19, 21, 24, 26, 28)
 def features_state_dict_from_jax(params, net_type="alex"):
     """The JAX ``AlexNetFeatures`` / ``VGG16Features`` params (``conv{i}``)
     -> torchvision's ``features`` state_dict (``{pos}.weight``); the
-    inverse of ``convert_alexnet_features`` / ``convert_vgg16_features``."""
+    inverse of ``convert_alexnet_features`` / ``convert_vgg16_features``.
+    A truncated trunk (``VGG16Activations``: conv0-conv9) gives its convs'."""
     ids = ALEX_CONV_IDS if net_type == "alex" else VGG16_CONV_IDS
     out = {}
     for i, pos in enumerate(ids):
+        if f"conv{i}" not in params:
+            break
         out[f"{pos}.weight"] = _t(params[f"conv{i}"]["weight"])
         out[f"{pos}.bias"] = _t(params[f"conv{i}"]["bias"])
     return out

@@ -113,13 +113,14 @@ class BottleneckIRSE(nn.Module):
         return self.res_layer(x) + self.shortcut_layer(x)
 
 
-def fsencoder_blocks():
-    """(in, depth, stride) per unit of the RGI encoder trunk."""
+def fsencoder_blocks(slim: bool = False):
+    """(in, depth, stride) per unit of the RGI encoder trunk; ``slim``: one
+    unit per stage (the JAX package's knob for small test models)."""
     blocks = []
     for in_c, depth, n in ((64, 128, 3), (128, 256, 4), (256, 512, 14),
                            (512, 512, 3)):
         blocks.append((in_c, depth, 2))
-        blocks += [(depth, depth, 1)] * (n - 1)
+        blocks += [(depth, depth, 1)] * (0 if slim else n - 1)
     return blocks
 
 
@@ -128,16 +129,16 @@ class FSEncoderPSP(nn.Module):
     mean of three taps. forward(x [B,3,S,S], segmap [B,R,H,W]) ->
     (codes [B,R,1280], structure_feats: zeros [B,512,S/16,S/16])."""
 
-    TAPS = (6, 20, 23)
-
-    def __init__(self, num_seg_cls=12):
+    def __init__(self, num_seg_cls=12, slim=False):
         super().__init__()
         self.num_seg_cls = num_seg_cls
+        # the last 256-channel unit and the last two 512-channel units
+        self.TAPS = (1, 2, 3) if slim else (6, 20, 23)
         self.input_layer = nn.Sequential(
             nn.Conv2d(3, 64, 3, 1, 1, bias=False), InstanceNorm(), PReLU(64)
         )
         self.body = nn.Sequential(*[
-            BottleneckIRSE(i, d, s) for i, d, s in fsencoder_blocks()
+            BottleneckIRSE(i, d, s) for i, d, s in fsencoder_blocks(slim)
         ])
 
     def forward(self, x, segmap):

@@ -15,7 +15,9 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from e4s_tpu_torch.ops.fused_act import fused_leaky_relu
+from e4s_tpu_torch.ops.conv import blur, conv2d
+from e4s_tpu_torch.ops.fused_act import fused_leaky_relu, scaled_leaky_relu
+from e4s_tpu_torch.ops.upfirdn2d import make_kernel
 
 
 def pixel_norm(x, eps: float = 1e-8):
@@ -56,7 +58,8 @@ class EqualLinear(nn.Module):
 
 
 class EqualConv2d(nn.Module):
-    """Conv2d with equalised lr."""
+    """Conv2d with equalised lr (``ops/conv.py::conv2d``, whose double
+    backward, the R1 penalty's, is plain convolutions)."""
 
     def __init__(self, in_channel, out_channel, kernel_size, stride=1,
                  padding=0, bias=True):
@@ -76,8 +79,8 @@ class EqualConv2d(nn.Module):
                 self.bias.zero_()
 
     def forward(self, x):
-        return F.conv2d(x, self.weight * self.scale, bias=self.bias,
-                        stride=self.stride, padding=self.padding)
+        return conv2d(x, self.weight * self.scale, bias=self.bias,
+                      stride=self.stride, padding=self.padding)
 
 
 class FusedLeakyReLU(nn.Module):
@@ -95,6 +98,58 @@ class FusedLeakyReLU(nn.Module):
 
     def forward(self, x):
         return fused_leaky_relu(x, self.bias, self.negative_slope, self.scale)
+
+
+class ScaledLeakyReLU(nn.Module):
+    """LeakyReLU with the sqrt(2) gain and no bias."""
+
+    def forward(self, x):
+        return scaled_leaky_relu(x)
+
+
+class Blur(nn.Module):
+    """The FIR filter with the symmetric padding ``pad`` as a module
+    (``ops/conv.py::blur``, whose double backward, the R1 penalty's, is
+    plain convolutions): the 2-D kernel is the buffer ``kernel`` (a key of
+    the reference's checkpoints)."""
+
+    def __init__(self, taps, pad):
+        super().__init__()
+        if pad[0] != pad[1]:
+            raise ValueError(f"Blur takes a symmetric padding, not {pad}")
+        self.taps = tuple(taps)
+        self.pad = pad[0]
+        self.register_buffer("kernel", make_kernel(self.taps))
+
+    def reset_parameters(self, generator):
+        with torch.no_grad():
+            self.kernel.copy_(make_kernel(self.taps))
+
+    def forward(self, x):
+        return blur(x, self.kernel, self.pad)
+
+
+class ConvLayer(nn.Sequential):
+    """[Blur, stride 2 when ``downsample``] -> EqualConv2d -> [activation]:
+    the discriminator's layer, with the reference's Sequential indices. The
+    conv carries the bias only without an activation; the activation is
+    ``FusedLeakyReLU`` (with the bias) or, without one, ``ScaledLeakyReLU``."""
+
+    def __init__(self, in_channel, out_channel, kernel_size, downsample=False,
+                 blur_kernel=(1, 3, 3, 1), bias=True, activate=True):
+        layers = []
+        if downsample:
+            p = (len(blur_kernel) - 2) + (kernel_size - 1)
+            layers.append(Blur(blur_kernel, pad=((p + 1) // 2, p // 2)))
+            stride, padding = 2, 0
+        else:
+            stride, padding = 1, kernel_size // 2
+        layers.append(EqualConv2d(in_channel, out_channel, kernel_size,
+                                  stride=stride, padding=padding,
+                                  bias=bias and not activate))
+        if activate:
+            layers.append(FusedLeakyReLU(out_channel) if bias else ScaledLeakyReLU())
+        super().__init__(*layers)
 
 
 def init_module_(root: nn.Module, generator: torch.Generator) -> nn.Module:

@@ -80,6 +80,26 @@ class VGG16Features(_Features):
         super().__init__(*layers)
 
 
+class VGG16Activations(nn.Sequential):
+    """torchvision ``vgg16().features`` up to position 22: the raw ReLU
+    outputs at positions 3, 8, 15 and 22 (the style loss's trunk; no input
+    scaling, no normalisation). A torchvision ``features`` state_dict loads
+    with ``strict=False`` (the deeper layers are not held)."""
+
+    TAPS = (3, 8, 15, 22)
+
+    def __init__(self):
+        super().__init__(*list(VGG16Features())[:self.TAPS[-1] + 1])
+
+    def forward(self, x):
+        taps = []
+        for i, layer in enumerate(self):
+            x = layer(x)
+            if i in self.TAPS:
+                taps.append(x)
+        return taps
+
+
 class LinHead(nn.Module):
     """An LPIPS head: the weight [1,C,1,1] of a 1x1 conv without bias (ones
     when initialised, as in the JAX package)."""

@@ -39,20 +39,24 @@ class LocalMLP(nn.Module):
 class Net3(nn.Module):
     def __init__(self, num_seg_cls=12, out_size=1024, remaining_layer_idx=13,
                  split_layer_idx=5, n_styles=18, start_from_latent_avg=True,
-                 encoder_size=256):
+                 encoder_size=256, encoder_slim=False, ch_div=1):
+        """``encoder_size``, ``encoder_slim`` and ``ch_div`` (the encoder's
+        input size, one trunk unit per stage, narrower G stages) are the
+        JAX package's knobs for small test models; the defaults are the
+        published model."""
         super().__init__()
         self.num_seg_cls = num_seg_cls
         self.remaining_layer_idx = remaining_layer_idx
         self.n_styles = n_styles
         self.start_from_latent_avg = start_from_latent_avg
         self.encoder_size = encoder_size
-        self.encoder = FSEncoderPSP(num_seg_cls)
+        self.encoder = FSEncoderPSP(num_seg_cls, slim=encoder_slim)
         num_w = remaining_layer_idx if remaining_layer_idx != 17 else 18
         self.MLPs = nn.ModuleList(
             [LocalMLP(DIM_S_CODE, 512, num_w) for _ in range(num_seg_cls)]
         )
         self.G = Generator(out_size, 512, 8, split_layer_idx=split_layer_idx,
-                           remaining_layer_idx=remaining_layer_idx)
+                           remaining_layer_idx=remaining_layer_idx, ch_div=ch_div)
 
     def forward(self, img, mask, latent_avg=None, randomize_noise=True,
                 noise=None, return_latents=False):

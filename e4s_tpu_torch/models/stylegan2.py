@@ -1,5 +1,5 @@
-"""Mask-guided StyleGAN2 generator (counterpart of
-``e4s_tpu/models/stylegan2.py``; the discriminator is not ported yet).
+"""Mask-guided StyleGAN2 generator and the StyleGAN2 discriminator
+(counterpart of ``e4s_tpu/models/stylegan2.py``).
 
 Layers below K = ``remaining_layer_idx`` take one style per facial region
 and run the region-masked modulated conv (``ops/modconv.py``, the CUDA
@@ -24,7 +24,12 @@ from typing import Optional, Sequence
 import torch
 import torch.nn as nn
 
-from e4s_tpu_torch.models.layers import EqualLinear, FusedLeakyReLU, PixelNorm
+from e4s_tpu_torch.models.layers import (
+    ConvLayer,
+    EqualLinear,
+    FusedLeakyReLU,
+    PixelNorm,
+)
 from e4s_tpu_torch.ops.modconv import (
     masked_conv_weights,
     masked_modulated_conv2d,
@@ -34,8 +39,11 @@ from e4s_tpu_torch.ops.modconv import (
 from e4s_tpu_torch.ops.upfirdn2d import make_kernel, upsample2
 
 
-def generator_channels(channel_multiplier: int = 2):
-    return {
+def generator_channels(channel_multiplier: int = 2, ch_div: int = 1):
+    """Channels per resolution. ``ch_div`` narrows every stage (to at least
+    8), as the JAX package's knob of the same name does for small test
+    models; 1, the default, is the published width."""
+    base = {
         4: 512, 8: 512, 16: 512, 32: 512,
         64: 256 * channel_multiplier,
         128: 128 * channel_multiplier,
@@ -43,6 +51,7 @@ def generator_channels(channel_multiplier: int = 2):
         512: 32 * channel_multiplier,
         1024: 16 * channel_multiplier,
     }
+    return {k: max(8, v // ch_div) for k, v in base.items()}
 
 
 class _FirKernel(nn.Module):
@@ -89,8 +98,12 @@ class ModulatedConv2d(nn.Module):
         their packed layout), built once and rebuilt when the weight changes
         in place (``load_state_dict``, an optimizer step) or moves. Where
         the weight takes a gradient they are built per call instead, so the
-        gradient flows through them."""
-        if torch.is_grad_enabled() and self.weight.requires_grad:
+        gradient flows through them, and so they are where the weight is not
+        the module's own parameter (``torch.func.functional_call`` with,
+        say, a bf16 cast of it: a temporary whose storage a later one may
+        reuse)."""
+        if not isinstance(self.weight, nn.Parameter) or (
+                torch.is_grad_enabled() and self.weight.requires_grad):
             return masked_conv_weights(w_scaled, self.upsample, self.blur_kernel)
         key = (self.weight._version, self.weight.data_ptr(), self.weight.device,
                self.weight.dtype)
@@ -194,9 +207,9 @@ class Generator(nn.Module):
 
     def __init__(self, size=1024, style_dim=512, n_mlp=8, channel_multiplier=2,
                  blur_kernel=(1, 3, 3, 1), lr_mlp=0.01, split_layer_idx=5,
-                 remaining_layer_idx=13):
+                 remaining_layer_idx=13, ch_div=1):
         super().__init__()
-        channels = generator_channels(channel_multiplier)
+        channels = generator_channels(channel_multiplier, ch_div)
         self.size = size
         self.style_dim = style_dim
         self.log_size = int(math.log2(size))
@@ -248,6 +261,19 @@ class Generator(nn.Module):
         with torch.no_grad():
             for i in range(self.num_layers):
                 getattr(self.noises, f"noise_{i}").normal_(generator=generator)
+
+    def run_style_mlp(self, z):
+        """The 8-layer mapping z [N, 512] -> w [N, 512] (pixel norm first)."""
+        return self.style(z)
+
+    def mean_latent(self, n_latent: int, generator: Optional[torch.Generator] = None):
+        """The mean of ``n_latent`` mapped z ~ N(0, 1): [1, 512]. z is drawn
+        from ``generator`` on its device (a CPU generator gives the same z
+        for weights on any device), then moved to the weights'."""
+        w = self.style[1].weight
+        z = torch.randn((n_latent, self.style_dim), generator=generator,
+                        device=generator.device if generator is not None else w.device)
+        return self.run_style_mlp(z.to(w.device, w.dtype)).mean(dim=0, keepdim=True)
 
     def forward(
         self,
@@ -315,3 +341,57 @@ class Generator(nn.Module):
         if intermediate_feats is not None:
             intermediate_feats = intermediate_feats.contiguous()
         return image, (latent if return_latents else None), intermediate_feats
+
+
+class ResBlock(nn.Module):
+    """Two 3x3 ConvLayers (the second downsampling) beside a 1x1
+    downsampling skip, summed and scaled by 1/sqrt(2)."""
+
+    def __init__(self, in_channel, out_channel, blur_kernel=(1, 3, 3, 1)):
+        super().__init__()
+        self.conv1 = ConvLayer(in_channel, in_channel, 3)
+        self.conv2 = ConvLayer(in_channel, out_channel, 3, downsample=True,
+                               blur_kernel=blur_kernel)
+        self.skip = ConvLayer(in_channel, out_channel, 1, downsample=True,
+                              blur_kernel=blur_kernel, activate=False,
+                              bias=False)
+
+    def forward(self, x):
+        return (self.conv2(self.conv1(x)) + self.skip(x)) / math.sqrt(2)
+
+
+class Discriminator(nn.Module):
+    """StyleGAN2 discriminator: a 1x1 ConvLayer from RGB, ResBlocks down to
+    4^2, the minibatch standard deviation (groups of up to 4 samples, one
+    feature) as an extra channel, a 3x3 ConvLayer and two EqualLinears.
+    forward(x [B,3,S,S]) -> logits [B,1]."""
+
+    def __init__(self, size=1024, channel_multiplier=2, blur_kernel=(1, 3, 3, 1),
+                 ch_div=1):
+        super().__init__()
+        channels = generator_channels(channel_multiplier, ch_div)
+        convs = [ConvLayer(3, channels[size], 1)]
+        in_channel = channels[size]
+        for i in range(int(math.log2(size)), 2, -1):
+            out_channel = channels[2 ** (i - 1)]
+            convs.append(ResBlock(in_channel, out_channel, blur_kernel))
+            in_channel = out_channel
+        self.convs = nn.Sequential(*convs)
+        self.stddev_group = 4
+        self.stddev_feat = 1
+        self.final_conv = ConvLayer(in_channel + 1, channels[4], 3)
+        self.final_linear = nn.Sequential(
+            EqualLinear(channels[4] * 4 * 4, channels[4], activation="fused_lrelu"),
+            EqualLinear(channels[4], 1),
+        )
+
+    def forward(self, x):
+        out = self.convs(x)
+        B, C, H, W = out.shape
+        group = min(B, self.stddev_group)
+        stddev = out.reshape(group, -1, self.stddev_feat, C // self.stddev_feat, H, W)
+        stddev = torch.sqrt(stddev.var(0, correction=0) + 1e-8)
+        stddev = stddev.mean(dim=(2, 3, 4), keepdim=True).squeeze(2)
+        stddev = stddev.repeat(group, 1, H, W)
+        out = self.final_conv(torch.cat([out, stddev], 1))
+        return self.final_linear(out.reshape(B, -1))

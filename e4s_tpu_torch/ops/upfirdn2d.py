@@ -60,3 +60,4 @@ def upsample2(x, kernel=(1, 3, 3, 1), factor: int = 2):
     pad0 = (p + 1) // 2 + factor - 1
     pad1 = p // 2
     return upfirdn2d(x, k, up=factor, down=1, pad=(pad0, pad1))
+

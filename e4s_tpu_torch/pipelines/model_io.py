@@ -64,6 +64,8 @@ def build_net(opts) -> Net3:
         n_styles=opts.n_styles,
         start_from_latent_avg=opts.start_from_latent_avg,
         encoder_size=getattr(opts, "encoder_size", 256),
+        encoder_slim=getattr(opts, "encoder_slim", False),
+        ch_div=getattr(opts, "ch_div", 1),
     )
 
 

@@ -36,20 +36,52 @@ from e4s_tpu_torch.utils.img_utils import tensor2im
 OPTIMIZERS = ("sgd", "sgdm", "adam", "adamax")
 
 
-class OptaxRule:
+class CountedOptimizer(torch.optim.Optimizer):
+    """An optimizer that counts its updates as an optax state does (one
+    count, kept in ``state_dict``), with ``lr`` a float or a schedule as
+    optax takes one: a function of the count of earlier updates."""
+
+    def __init__(self, params, lr):
+        super().__init__(list(params), {})
+        self.lr = lr
+        self.count = 0
+
+    def state_dict(self):
+        return {**super().state_dict(), "count": self.count}
+
+    def load_state_dict(self, state_dict):
+        state_dict = dict(state_dict)
+        self.count = int(state_dict.pop("count"))
+        super().load_state_dict(state_dict)
+
+    def _next_lr(self):
+        """Counts an update; returns its learning rate."""
+        self.count += 1
+        return self.lr(self.count - 1) if callable(self.lr) else self.lr
+
+    def _params_and_grads(self):
+        """The parameters and their ``.grad``, a missing one zero (as a
+        frozen JAX leaf's)."""
+        params = self.param_groups[0]["params"]
+        return params, [torch.zeros_like(p) if p.grad is None else p.grad
+                        for p in params]
+
+
+class OptaxRule(CountedOptimizer):
     """The update rules of the JAX package's four optimizers
     (``make_optimizer``: ``optax.sgd``, ``sgd`` with momentum 0.9,
     ``adam``, ``adamax``, defaults b1 0.9, b2 0.999, eps 1e-8), written as
     optax defines them, on f32 tensors updated in place. Adamax differs
-    from ``torch.optim.Adamax``: optax divides by max(|g| + eps, b2 u)."""
+    from ``torch.optim.Adamax``: optax divides by max(|g| + eps, b2 u).
+    ``step()`` reads every parameter's ``.grad``."""
 
-    def __init__(self, name: str, lr: float, params, b1=0.9, b2=0.999, eps=1e-8):
+    def __init__(self, name: str, lr, params, b1=0.9, b2=0.999, eps=1e-8):
         if name not in OPTIMIZERS:
             name = "adam"  # the JAX package's fallback for other names
-        self.name, self.lr, self.b1, self.b2, self.eps = name, lr, b1, b2, eps
-        self.count = 0
-        self.mu = [torch.zeros_like(p) for p in params]
-        self.nu = [torch.zeros_like(p) for p in params]
+        super().__init__(params, lr)
+        self.name, self.b1, self.b2, self.eps = name, b1, b2, eps
+        for p in self.param_groups[0]["params"]:
+            self.state[p] = {"mu": torch.zeros_like(p), "nu": torch.zeros_like(p)}
 
     def _bias_correction(self, decay) -> float:
         """1 - decay**count in f32, as optax computes it."""
@@ -58,10 +90,12 @@ class OptaxRule:
                                               dtype=np.float32))
 
     @torch.no_grad()
-    def step(self, params, grads):
-        self.count += 1
+    def step(self):
+        lr = self._next_lr()
+        params, grads = self._params_and_grads()
         b1, b2 = self.b1, self.b2
-        for p, g, mu, nu in zip(params, grads, self.mu, self.nu):
+        for p, g in zip(params, grads):
+            mu, nu = self.state[p]["mu"], self.state[p]["nu"]
             if self.name == "sgd":
                 u = g
             elif self.name == "sgdm":
@@ -77,7 +111,7 @@ class OptaxRule:
                 else:  # adamax
                     nu.copy_(torch.maximum(g.abs() + self.eps, b2 * nu))
                     u = mu_hat / nu
-            p.add_(u * -self.lr)
+            p.add_(u * -lr)
 
 
 def _load_aux(build, path: Optional[str], prefix: str, seed: int, device):
@@ -206,7 +240,9 @@ class Optimizer:
             recon = self.gen_from_sv(t[0], onehot_c, noise=t[1:] or None)
             loss, _ = self.calc_loss(img_c, recon)
             loss = loss.float()
-            rule.step(theta, torch.autograd.grad(loss, theta))
+            rule.zero_grad()
+            loss.backward(inputs=theta)
+            rule.step()
             losses.append(loss.detach())
             if keep_trace:
                 trace.append(theta[0].detach().clone())

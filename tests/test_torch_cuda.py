@@ -398,3 +398,109 @@ def test_inversion_step_gradient_on_the_card_matches_the_cpu(card, tmp_path):
     assert np.isfinite(gc).all() and np.abs(gp).max() > 0
     assert abs(lc - lp) <= 1e-4 * abs(lp)
     assert np.abs(gc - gp).max() <= 1e-3 * np.abs(gp).max()
+
+
+# ---------------------------------------------------------------- training
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,Ci,Co,up", [(16, 512, 512, False), (8, 512, 512, True),
+                                        (64, 512, 256, True)])
+def test_patch_mod_conv3_gradients_match_plain(card, dtype, H, Ci, Co, up):
+    """The gradients through ``_PatchModConv3`` (kernel forward, plain
+    backward) w.r.t. x, the weights (the up-conv's four phase weights),
+    smap and dmap at batch 2, against autograd through the plain version on
+    the same inputs: the forward's tolerance (the backward re-runs the plain
+    version, so only the upstream gradient may differ)."""
+    x, w, smap, dmap = (t.to(dtype).requires_grad_(True)
+                        for t in _inputs(H, Ci, Co, card, B=2, up=up))
+    r = torch.randn((2, 2 * H if up else H, 2 * H if up else H, Co),
+                    generator=torch.Generator(device=card).manual_seed(7),
+                    device=card).to(dtype)
+    kern = pmc.patch_mod_conv3_up_nhwc if up else pmc.patch_mod_conv3_nhwc
+    plain = pmc.patch_mod_conv3_up_nhwc_plain if up else pmc.patch_mod_conv3_nhwc_plain
+    pmc.patch_mod_conv3_nhwc.launches = 0
+    got = torch.autograd.grad((kern(x, w, smap, dmap) * r).float().sum(), (x, w, smap, dmap))
+    assert pmc.patch_mod_conv3_nhwc.launches == 1
+    want = torch.autograd.grad((plain(x, w, smap, dmap) * r).float().sum(),
+                               (x, w, smap, dmap))
+    tol = 1e-4 if dtype == torch.float32 else 8e-3
+    for g, v in zip(got, want):
+        _check(g, v, tol)
+
+
+@pytest.mark.cuda
+def test_masked_up_conv_weight_gradient_matches_the_region_loop(card):
+    """The gradient w.r.t. the 3x3 weight of a masked up-conv: kernel
+    forward on the polyphase weights built from it, plain backward through
+    them, against the reference's 12-conv region loop on the card."""
+    from e4s_tpu_torch.ops import modconv
+
+    g = torch.Generator(device=card).manual_seed(8)
+    x = torch.randn((2, 64, 16, 16), generator=g, device=card).contiguous(
+        memory_format=torch.channels_last)
+    w = (torch.randn((32, 64, 3, 3), generator=g, device=card) / 24).requires_grad_(True)
+    s = 1 + 0.3 * torch.randn((2, 12, 64), generator=g, device=card)
+    label = torch.randint(0, 12, (2, 32, 32), generator=g, device=card)
+    mask = torch.nn.functional.one_hot(label, 12).permute(0, 3, 1, 2).float()
+    r = torch.randn((2, 32, 32, 32), generator=g, device=card).permute(0, 3, 1, 2)
+    pmc.patch_mod_conv3_nhwc.launches = 0
+    (got,) = torch.autograd.grad(
+        (modconv.masked_modulated_conv2d(x, w, s, mask, up=True) * r).sum(), w)
+    assert pmc.patch_mod_conv3_nhwc.launches == 1
+    (want,) = torch.autograd.grad(
+        (modconv.masked_modulated_conv2d_naive(x, w, s, mask, up=True) * r).sum(), w)
+    _check(got, want)
+
+
+@pytest.mark.cuda
+def test_coach_g_and_d_steps_on_the_card_match_the_cpu(card, tmp_path):
+    """One Coach G step and one D step (16^2, K = 5, the small-model knobs
+    of tests/test_torch_training_steps.py), each from the same seeded weights,
+    batch and noise (the registered maps) on the card and on the CPU: the
+    losses within 1e-4 of max(|CPU value|, 1) (D's scores are means of
+    logits near 0), the update's sign differing in at most 1% of the
+    elements (Adam's first step is +-lr), 5 launches a step."""
+    from e4s_tpu_torch.datasets.dataset import SyntheticFaceDataset, label_map_to_onehot
+    from e4s_tpu_torch.options.train_options import TrainOptions
+    from e4s_tpu_torch.training.coach import Coach
+
+    ds = SyntheticFaceDataset(size=16)
+    img = np.stack([ds[i][0] for i in (1, 2)])
+    label = np.stack([ds[i][1] for i in (1, 2)]).astype(np.int32)
+    batch = (img, label, label_map_to_onehot(label, 12))
+    res = {}
+    for dev in ("cuda", "cpu"):
+        opts = TrainOptions().parse([
+            "--device", dev, "--exp_dir", str(tmp_path / dev), "--out_size", "16",
+            "--remaining_layer_idx", "5", "--n_styles", "6", "--id_lambda", "0",
+            "--face_parsing_lambda", "0", "--w_norm_lambda", "0.01",
+            "--latent_avg_samples", "16", "--stylegan_weights", ""])
+        opts.encoder_size, opts.encoder_slim, opts.ch_div = 32, True, 8
+        img_t, label_t, onehot_t = (torch.from_numpy(a).to(dev) for a in batch)
+        out = {}
+        for key in ("g", "d"):  # each from the seeded weights
+            coach = Coach(opts)
+            G = coach.net.G
+            noise = [getattr(G.noises, f"noise_{i}") for i in range(G.num_layers)]
+            m = coach.net if key == "g" else coach.D
+            before = {n: p.detach().cpu().clone() for n, p in m.named_parameters()}
+            pmc.patch_mod_conv3_nhwc.launches = 0
+            if key == "g":
+                losses = coach._g_step(img_t, label_t, onehot_t, noise=noise)
+            else:
+                losses = coach._d_step(img_t, onehot_t, noise=noise)
+            out[key] = ({k: float(v) for k, v in losses.items()},
+                        {n: torch.sign(p.detach().cpu() - before[n])
+                         for n, p in m.named_parameters()},
+                        pmc.patch_mod_conv3_nhwc.launches)
+        res[dev] = out
+    for key in ("g", "d"):
+        (lc, sc, nc), (lp, sp, npl) = res["cuda"][key], res["cpu"][key]
+        assert (nc, npl) == (5, 0)
+        assert set(lc) == set(lp)
+        for k in lp:
+            assert abs(lc[k] - lp[k]) <= 1e-4 * max(abs(lp[k]), 1.0), (key, k, lc[k], lp[k])
+        differ = sum(int((sc[n] != sp[n]).sum()) for n in sp)
+        assert differ <= 1e-2 * sum(t.numel() for t in sp.values()), (key, differ)
