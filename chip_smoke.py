@@ -58,7 +58,24 @@ Phases, in order; the first that fails ends the run with a non-zero exit:
  16. training at 64^2 on the card against the CPU: one G step and one D
      step from the same weights, batch and noise: the losses within 1e-4
      of max(|CPU value|, 1), the signs of the updates differing in at most
-     1% of the elements.
+     1% of the elements;
+ 17. the re-enacted 1024^2 swap at full width (FaceVid2Vid vox-256,
+     RealESRNet x4 with 23 blocks, RetinaFace-R50, GPEN-BFR-512, ParseNet;
+     seeded random weights, ``force_one_face``): ``FaceSwapper`` with the
+     port's re-enactor and restorer answers 3 warm requests on the example
+     pair in f32 and 3 with ``bf16``: each chain stage's time from CUDA
+     events (pose, fv2v generator, SR, detect with the candidates
+     downloaded, restore) and the fused swap's, the request on the host
+     clock, peak memory and the 13 masked-conv launches per request (bf16
+     ones under ``bf16``); in f32 also the staged target-mask request and
+     ``swap_batch`` of 2 pairs (uint8 and float) behind the chain; then
+     the bf16 chain's D against the f32 one's;
+ 18. the chain and the swap at their small sizes (fv2v at 64^2 with narrow
+     nets, RealESRNet with 2 blocks, GPEN at 64, the swap at 256^2) on the
+     card against the CPU: D and the final image as PSNR;
+ 19. the chain's other branches, each once on the card and on the CPU at
+     the sizes of 18, with the detections fed in (two faces, a face under
+     100 px, no face): D as PSNR.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
 line before it is the per-kernel JSON summary. TF32 is off throughout.
@@ -1019,6 +1036,242 @@ def phase_training_vs_cpu():
             raise SystemExit(f"FAIL train: 64^2 {key} step card vs CPU")
 
 
+# re-enactment and restoration (phases 17-19)
+CHAIN_STAGES = (("pose", ("_prep_pose",)), ("fv2v", ("_generate",)),
+                ("sr", ("_sr_stage",)), ("detect", ("_det_stage", "_faces")),
+                ("restore", ("_restore_stage",)))
+# uint8 PSNR limits of the chain's D, and why:
+# - card against CPU, same f32 weights: cuDNN and the CPU's convolutions sum
+#   in other orders; a value on a rounding or truncation boundary moves one
+#   level, and at random weights a ParseNet argmax on a near tie flips and
+#   moves the feathered paste mask; 40 dB bounds that (the JAX package's bar
+#   for its chain against its host glue is 60 dB on one backend);
+# - bf16 against f32 on the card: the four conv nets in bf16 (8 bits of
+#   mantissa) change the SR image by about a level everywhere and GPEN's
+#   face more; the JAX chain's bf16 measured 49.3 dB; 30 dB is the bound
+PSNR_D_CARD_CPU = 40.0
+PSNR_D_BF16 = 30.0
+# the final swap after D: at random weights Net3 amplifies the few flipped
+# D mask pixels through the region-pooled style codes into a global shift
+# (the JAX package's bar is 30 dB, tests/test_pipelines.py); 30 dB card
+# against CPU, 20 dB (a broken image is near 10) bf16 against f32
+PSNR_SWAP_CARD_CPU = 30.0
+PSNR_SWAP_BF16 = 20.0
+# two runs of the same pairs on the card (uint8 against float inputs): equal
+# but for the card's run-to-run differences, which sound runs put at about
+# 100 dB; uint8 read as [0,1] gives another image (~10 dB), and one
+# rounding level off on every pixel of the uint8 path gives 48 dB: 60 dB
+PSNR_REPEAT = 60.0
+SMALL_FV2V = dict(
+    size=64, kp_kwargs=dict(block_expansion=8, max_features=64,
+                            reshape_channel=128, reshape_depth=4, num_blocks=2),
+    gen_kwargs=dict(feature_channel=4, block_expansion=64, max_features=16,
+                    num_down_blocks=2, reshape_channel=4, reshape_depth=4,
+                    num_resblocks=1, dense_motion_params=dict(
+                        block_expansion=8, num_blocks=2, max_features=32)))
+SMALL_GPEN = {"in_size": 64, "force_one_face": True}  # RealESRNet cut to 2 blocks
+FULL_GPEN = {"in_size": 512, "use_sr": True, "sr_scale": 4,
+             "channel_multiplier": 2, "narrow": 1, "force_one_face": True}
+
+
+def _chain_models(device, small=False):
+    from e4s_tpu_torch.models.facevid2vid.driver import build_reenactor
+    from e4s_tpu_torch.models.gpen.face_enhancement import build_restorer
+    from e4s_tpu_torch.models.gpen.rrdbnet import RRDBNet
+    from e4s_tpu_torch.pipelines.model_io import materialise
+
+    restorer = build_restorer(SMALL_GPEN if small else FULL_GPEN, device=device, seed=6)
+    if small:
+        restorer.srmodel = materialise(lambda: RRDBNet(scale=4, num_block=2), None, 7,
+                                       device)
+    return (build_reenactor(None, device=device, seed=5, **(SMALL_FV2V if small else {})),
+            restorer)
+
+
+def _time_stages(swapper):
+    """Wraps the chain's stages and the fused swap with CUDA events; returns
+    the event pairs per label (cleared by the caller per request)."""
+    events = {}
+
+    def wrap(obj, attr, label):
+        fn = getattr(obj, attr)
+
+        def timed(*a, **k):
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            out = fn(*a, **k)
+            end.record()
+            events.setdefault(label, []).append((start, end))
+            return out
+
+        setattr(obj, attr, timed)
+
+    for label, attrs in CHAIN_STAGES:
+        for attr in attrs:
+            wrap(swapper.chain, attr, label)
+    wrap(swapper, "_swap_e2e", "swap")
+    return events
+
+
+def _reenact_other_paths(swapper):
+    """The chain before the staged path (the example's target mask) and
+    before ``swap_batch`` (2 pairs, uint8 and float, one chunk): 13 launches
+    per swap or chunk, and uint8 and float inputs the same result up to the
+    card's run-to-run differences (read as [0,1], uint8 would be ~10 dB)."""
+    _reset_launches()
+    t0 = time.perf_counter()
+    arr = np.asarray(swapper.swap(os.path.join(EXAMPLE, "source.jpg"),
+                                  os.path.join(EXAMPLE, "target.jpg"),
+                                  target_mask=_example_target_mask()))
+    torch.cuda.synchronize()
+    staged = _launch_counts()[0]
+    log(f"[reenact] staged target-mask request: {(time.perf_counter() - t0) * 1e3:.1f} ms, "
+        f"patch_mod_conv3 launches {staged}, mean pixel {arr.mean():.2f}")
+    src, tgt = _batch_pairs(2)
+    _reset_launches()
+    t0 = time.perf_counter()
+    out_u8 = swapper.swap_batch(src, tgt, chunk=2)
+    torch.cuda.synchronize()
+    batch = _launch_counts()[0]
+    out_f = swapper.swap_batch(src / 255.0, tgt / 255.0, chunk=2)
+    psnr = _psnr(out_u8, np.round(out_f * 255))
+    s_u8, t_u8 = (torch.from_numpy(a[:1]).cuda() for a in (src, tgt))
+    d1, d2 = (swapper.chain(s_u8, t_u8).cpu().numpy() for _ in range(2))
+    log(f"[reenact] swap_batch of 2 uint8 pairs, chunk 2: "
+        f"{(time.perf_counter() - t0) * 1e3:.1f} ms with the float run, launches "
+        f"{batch}; uint8 against float inputs uint8 PSNR {psnr:.2f} dB (limit "
+        f"{PSNR_REPEAT:.0f}); the chain twice on one pair: D equal {np.array_equal(d1, d2)}, "
+        f"PSNR {_psnr(d1, d2):.2f} dB")
+    if (staged, batch) != (PMC_LAUNCHES_PER_SWAP,) * 2 or psnr < PSNR_REPEAT:
+        raise SystemExit(f"FAIL reenact: staged {staged} / batch {batch} launches, "
+                         f"uint8 against float {psnr:.2f} dB")
+
+
+def phase_reenact_swaps():
+    """The re-enacted 1024^2 swap at full width in f32 and bf16: per-stage
+    CUDA-event times, host ms, peak memory, 13 launches per request; then
+    the bf16 chain's D against the f32 chain's."""
+    from e4s_tpu_torch.pipelines.face_swap import FaceSwapper
+
+    t0 = time.perf_counter()
+    reenactor, restorer = _chain_models("cuda")
+    torch.cuda.synchronize()
+    log(f"[reenact] FaceVid2Vid vox-256 + GPEN-512 (RealESRNet x4 23 blocks, "
+        f"RetinaFace-R50, ParseNet) built in {time.perf_counter() - t0:.1f} s")
+    src = os.path.join(EXAMPLE, "source.jpg")
+    tgt = os.path.join(EXAMPLE, "target.jpg")
+    outs = {}
+    for bf16 in (False, True):
+        tag = "bf16" if bf16 else "f32"
+        swapper = FaceSwapper(_opts(1024, 18, bf16=bf16), device="cuda", seed=0,
+                              reenactor=reenactor, restorer=restorer)
+        finite = _finite_hook(swapper)
+        events = _time_stages(swapper)
+        torch.cuda.reset_peak_memory_stats()
+        for r in range(4):
+            events.clear()
+            torch.cuda.synchronize()
+            _reset_launches()
+            t0 = time.perf_counter()
+            arr = np.asarray(swapper.swap(src, tgt))
+            torch.cuda.synchronize()
+            host = (time.perf_counter() - t0) * 1e3
+            total, n16 = _launch_counts()
+            stages = {k: sum(a.elapsed_time(b) for a, b in v) for k, v in events.items()}
+            # the request's host time outside every timed stage: the image
+            # loads, the uploads, the download and the host between stages
+            gap = host - sum(stages.values())
+            log(f"[reenact] {tag} request {r}{' (warm-up)' if r == 0 else ''}: "
+                f"{host:.1f} ms host, gap {gap:.1f}; " + ", ".join(
+                    f"{k} {stages[k]:.2f}" for k in [c[0] for c in CHAIN_STAGES] + ["swap"])
+                + f" ms (CUDA events); patch_mod_conv3 launches {total} (bf16 {n16}); "
+                f"faces {len(swapper.chain.last_faces)}; mean pixel {arr.mean():.2f}")
+            if arr.shape != (1024, 1024, 3) or arr.dtype != np.uint8:
+                raise SystemExit(f"FAIL reenact: result {arr.shape} {arr.dtype}")
+            if not finite[-1].item():
+                raise SystemExit("FAIL reenact: non-finite face before the uint8 cast")
+            if total != PMC_LAUNCHES_PER_SWAP or n16 != (total if bf16 else 0):
+                raise SystemExit(f"FAIL reenact: {total} launches ({n16} bf16), want "
+                                 f"{PMC_LAUNCHES_PER_SWAP}{' bf16' if bf16 else ''}")
+        log(f"[reenact] {tag} peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        if not bf16:
+            _reenact_other_paths(swapper)
+        S01, T01 = swapper._load(src), swapper._load(tgt)
+        outs[tag] = (swapper.chain(swapper._u8(S01), swapper._u8(T01)).cpu().numpy(), arr)
+        del swapper
+        torch.cuda.empty_cache()
+    for i, (name, limit) in enumerate((("D", PSNR_D_BF16), ("swap", PSNR_SWAP_BF16))):
+        psnr = _psnr(outs["bf16"][i], outs["f32"][i])
+        log(f"[reenact] 1024^2 bf16 vs f32 on the card: {name} uint8 PSNR {psnr:.2f} dB "
+            f"(limit {limit:.0f})")
+        if psnr < limit:
+            raise SystemExit(f"FAIL reenact: bf16 {name} PSNR {psnr:.2f} dB < {limit}")
+    del reenactor, restorer
+    torch.cuda.empty_cache()
+
+
+def phase_reenact_vs_cpu():
+    """The chain and the swap at their small sizes, card against CPU, on the
+    default path (the stand-in face); then each other branch with the
+    detections fed in."""
+    from e4s_tpu_torch.pipelines.face_swap import FaceSwapper
+
+    src = os.path.join(EXAMPLE, "source.jpg")
+    tgt = os.path.join(EXAMPLE, "target.jpg")
+    S = 256
+    # (boxes x1 y1 x2 y2 score, landmarks x's then y's) per branch
+    pts = np.array([[0.38, 0.62, 0.50, 0.40, 0.60], [0.42, 0.42, 0.55, 0.70, 0.70]])
+
+    def face(x0, y0, side, score):
+        lm = np.concatenate([x0 + side * pts[0], y0 + side * pts[1]])
+        return [x0, y0, x0 + side, y0 + side, score], lm
+
+    branches = {
+        "two faces": [face(40, 40, 150, 0.95), face(120, 110, 110, 0.99)],
+        "face under 100 px": [face(90, 80, 80, 0.97)],
+        "no face": [face(60, 60, 120, 0.5)],
+    }
+    res = {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        reenactor, restorer = _chain_models(dev, small=True)
+        swapper = FaceSwapper(_opts(S, 14), device=dev, seed=1,
+                              reenactor=reenactor, restorer=restorer)
+        chain = swapper.chain
+        S01, T01 = swapper._load(src), swapper._load(tgt)
+        s_u8, t_u8 = swapper._u8(S01), swapper._u8(T01)
+        res[dev, "default"] = (chain(s_u8, t_u8).cpu().numpy(),
+                               np.asarray(swapper.swap(src, tgt)))
+        real_det = chain._det_stage
+        for name, faces in branches.items():
+            dets = torch.tensor([f[0] for f in faces], dtype=torch.float32, device=dev)
+            lms = torch.tensor(np.stack([f[1] for f in faces]), dtype=torch.float32,
+                               device=dev)
+            chain._det_stage = lambda up, d=dets, l=lms: (d[:, :4], l, d[:, 4])
+            chain.enh.force_one_face = name != "no face"
+            res[dev, name] = (chain(s_u8, t_u8).cpu().numpy(),)
+            res[dev, name, "faces"] = [f[2] for f in chain.last_faces]
+        chain._det_stage = real_det
+        log(f"[reenact] small chain + 256^2 swap on {dev}: "
+            f"{time.perf_counter() - t0:.1f} s (builds included)")
+        del swapper, reenactor, restorer
+    for name in ["default"] + list(branches):
+        got, want = res["cuda", name], res["cpu", name]
+        psnrs = [_psnr(a, b) for a, b in zip(got, want)]
+        faces = res.get(("cuda", name, "faces"), None)
+        log(f"[reenact] {name}: card vs cpu D uint8 PSNR {psnrs[0]:.2f} dB "
+            f"(limit {PSNR_D_CARD_CPU:.0f})"
+            + (f", swap {psnrs[1]:.2f} dB (limit {PSNR_SWAP_CARD_CPU:.0f})"
+               if len(psnrs) > 1 else f"; faces pasted (small?) {faces}"))
+        if psnrs[0] < PSNR_D_CARD_CPU or (len(psnrs) > 1 and psnrs[1] < PSNR_SWAP_CARD_CPU):
+            raise SystemExit(f"FAIL reenact: {name} card vs CPU PSNR {psnrs}")
+    want_faces = {"two faces": [False, False], "face under 100 px": [True], "no face": []}
+    for name, faces in want_faces.items():
+        if res["cuda", name, "faces"] != faces or res["cpu", name, "faces"] != faces:
+            raise SystemExit(f"FAIL reenact: {name} pasted {res['cuda', name, 'faces']}")
+
+
 def _per_swap_line(rows, launches, B=1, dtype=torch.float32):
     def total(key):
         return sum(r[key] for r in rows)
@@ -1067,6 +1320,8 @@ def main():
     worst16 = max(worst16, phase_kernel_vs_plain(2, bf16))
     phase_training()
     phase_training_vs_cpu()
+    phase_reenact_swaps()
+    phase_reenact_vs_cpu()
     row = dict(route="cuda", replaces="e4s_tpu/ops/pallas/modconv_tpu.py:39",
                library_ms=None)
     summary = {"kernels": [{

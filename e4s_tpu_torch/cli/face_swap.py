@@ -7,8 +7,10 @@
         [--verbose true] [--output_dir DIR] [--device cuda]
 
 Runs on the GPU unless ``--device cpu`` is given. Checkpoints that are not
-found are replaced by seeded random weights (with a message). Re-enactment
-and restoration are not ported: the source face is used as it is.
+found are replaced by seeded random weights (with a message). With the
+FaceVid2Vid and GPEN checkpoints under ``./pretrained_ckpts/`` the source is
+first driven by the target's pose and restored, on the device; without
+them it is swapped as it is (with a message).
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import numpy as np
 
 from e4s_tpu_torch.options.swap_options import SwapFacePipelineOptions
 from e4s_tpu_torch.pipelines.face_swap import FaceSwapper
+from e4s_tpu_torch.pipelines.reenact import try_build_reenactor_restorer
 from e4s_tpu_torch.utils.label_maps import celebahq_mask_to_faceparser_mask_detailed
 
 
@@ -37,9 +40,14 @@ def run(opts):
     if opts.landmarks_npz:
         with np.load(opts.landmarks_npz) as z:
             landmarks = [z[k] for k in z.files]
-    print("[e4s_tpu_torch] re-enactment is not ported: the source face is "
-          "swapped as it is")
-    swapper = FaceSwapper(opts, device=opts.device)
+    reenactor = restorer = None
+    try:
+        reenactor, restorer = try_build_reenactor_restorer(opts, device=opts.device)
+    except FileNotFoundError as e:
+        print(f"[e4s_tpu_torch] re-enactment/restoration unavailable ({e}); "
+              "falling back to direct source texture")
+    swapper = FaceSwapper(opts, device=opts.device, reenactor=reenactor,
+                          restorer=restorer)
     result = swapper.swap(
         opts.source, opts.target, save_dir=opts.output_dir,
         target_mask=target_mask, need_crop=opts.need_crop,

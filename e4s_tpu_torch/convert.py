@@ -4,7 +4,8 @@ The inverse of the JAX package's checkpoint converters
 (``e4s_tpu/utils/torch_convert.py``: ``convert_net3_state_dict``,
 ``convert_discriminator``, ``convert_bisenet``, ``convert_segnext``,
 ``convert_irse50``, ``convert_unet``, ``convert_alexnet_features``,
-``convert_vgg16_features``, ``convert_lpips_lin``). The keys are the
+``convert_vgg16_features``, ``convert_lpips_lin``, and the re-enactment and
+restoration nets' converters). The keys are the
 reference checkpoints', so the result loads into the port's modules with
 ``load_state_dict`` and converts back to the same JAX tree. Leaves are read with ``np.asarray``; JAX is not needed.
 """
@@ -335,3 +336,152 @@ def lpips_state_dict_from_jax(params, net_type="alex"):
         out[f"lin.{i}.1.weight"] = _t(params[f"lin_{i}"])
         i += 1
     return out
+
+
+# ---------------------------------------------------------------------------
+# Re-enactment (FaceVid2Vid) and restoration (GPEN): the inverses of
+# ``convert_kp_detector``, ``convert_he_estimator``, ``convert_fv_generator``,
+# ``convert_gpen_full_generator``, ``convert_rrdbnet``, ``convert_parsenet``
+# and ``convert_retinaface``
+# ---------------------------------------------------------------------------
+
+
+def _renamed_state_dict(variables, rename):
+    """Every leaf of ``params`` and ``batch_stats`` under the key
+    ``rename(module path) + leaf``; each BatchNorm gets a zero
+    ``num_batches_tracked``."""
+    out = {}
+    for coll in ("params", "batch_stats"):
+        for path, v in _flatten(variables.get(coll, {})):
+            key = ".".join(rename(path[:-1]) + path[-1:])
+            out[key] = _t(v)
+            if path[-1] == "running_mean":
+                out[key[:-len("running_mean")] + "num_batches_tracked"] = (
+                    torch.zeros((), dtype=torch.long))
+    return out
+
+
+def _sub(rules):
+    """A ``rename`` from (regex, replacement) rules applied to each part of
+    the module path; a replacement may hold dots (several parts)."""
+    def rename(q):
+        out = []
+        for part in q:
+            for pat, rep in rules:
+                part = re.sub(pat, rep, part)
+            out += part.split(".")
+        return tuple(out)
+    return rename
+
+
+def _spectral(w):
+    """A folded weight W -> (weight_orig, weight_u, weight_v) with
+    u^T W v = 1, so that eval-mode spectral norm gives W back."""
+    w = np.asarray(w, np.float32)
+    mat = w.reshape(w.shape[0], -1).astype(np.float64)
+    i = int(np.argmax((mat ** 2).sum(1)))
+    u = np.zeros(mat.shape[0])
+    u[i] = 1.0
+    v = mat[i] / (mat[i] ** 2).sum()
+    return _t(w), _t(u), _t(v)
+
+
+def kp_detector_state_dict_from_jax(variables, image_channel=3, scale_factor=0.25):
+    """The JAX ``KPDetector`` -> the reference's ``kp_detector`` keys; the
+    anti-alias filter ``down.weight`` (a constant) comes from the port."""
+    from e4s_tpu_torch.models.facevid2vid.util import AntiAliasInterpolation2d
+
+    out = _renamed_state_dict(variables, _sub([
+        (r"^down_(\d+)$", r"down_blocks.down\1"), (r"^up_(\d+)$", r"up_blocks.up\1")]))
+    if scale_factor != 1:
+        out["down.weight"] = AntiAliasInterpolation2d(image_channel, scale_factor).weight
+    return out
+
+
+def he_estimator_state_dict_from_jax(variables):
+    """The JAX ``HEEstimator`` -> the reference's ``he_estimator`` keys."""
+    out = _renamed_state_dict(variables, _sub([(r"^block([1357])_(\d+)$", r"block\1.b\1_\2")]))
+    return {re.sub(r"^(fc_\w+)_(weight|bias)$", r"\1.\2", k): v for k, v in out.items()}
+
+
+def fv_generator_state_dict_from_jax(variables):
+    """The JAX ``OcclusionAwareSPADEGenerator`` -> the reference's
+    ``generator`` keys, its SPADE blocks' convs under spectral norm."""
+    out = _renamed_state_dict(variables, _sub([
+        (r"^encoder_down_(\d+)$", r"encoder.down_blocks.\1"),
+        (r"^decoder_up_(\d+)$", r"decoder.up_blocks.\1"),
+        (r"^decoder_(conv|norm)$", r"decoder.\1"),
+        (r"^down_blocks_(\d+)$", r"down_blocks.\1"),
+        (r"^resblocks_3d_(\d+)$", r"resblocks_3d.3dr\1"),
+        (r"^mlp_shared_conv$", "mlp_shared.0")]))
+    for k in [k for k in out if re.search(r"\.conv_[01s]\.weight$", k)]:
+        q = k[:-len(".weight")]
+        out[f"{q}.weight_orig"], out[f"{q}.weight_u"], out[f"{q}.weight_v"] = (
+            _spectral(out.pop(k)))
+    return out
+
+
+def gpen_state_dict_from_jax(variables, blur_kernel=(1, 3, 3, 1)):
+    """The JAX ``GPENFullGenerator`` params -> ``GPEN-BFR-512.pth``'s keys."""
+    p = variables["params"]
+    fir = make_kernel(blur_kernel) * 4.0
+    out = {}
+    i = 0
+    while f"ecd{i}" in p:
+        _conv_layer(p[f"ecd{i}"], out, f"ecd{i}.0", i > 0, blur_kernel)
+        i += 1
+    out["final_linear.0.weight"] = _t(p["final_linear"]["weight"])
+    out["final_linear.0.bias"] = _t(p["final_linear"]["bias"])
+    g = p["generator"]
+    i = 1
+    while f"style_{i}" in g:
+        out[f"generator.style.{i}.weight"] = _t(g[f"style_{i}"]["weight"])
+        out[f"generator.style.{i}.bias"] = _t(g[f"style_{i}"]["bias"])
+        i += 1
+    out["generator.input.input"] = _t(g["input"])
+
+    def styled(name, q, up):
+        _modconv(g[name]["conv"], out, f"{q}.conv")
+        if up:
+            out[f"{q}.conv.blur.kernel"] = fir.clone()
+        out[f"{q}.noise.weight"] = _t(g[name]["noise_weight"])
+        out[f"{q}.activate.bias"] = _t(g[name]["activate"]["bias"])
+
+    def to_rgb(name, q, up):
+        _modconv(g[name]["conv"], out, f"{q}.conv")
+        out[f"{q}.bias"] = _t(g[name]["bias"])
+        if up:
+            out[f"{q}.upsample.kernel"] = fir.clone()
+
+    styled("conv1", "generator.conv1", False)
+    to_rgb("to_rgb1", "generator.to_rgb1", False)
+    j = 0
+    while f"convs_{j}" in g:
+        styled(f"convs_{j}", f"generator.convs.{j}", j % 2 == 0)
+        j += 1
+    j = 0
+    while f"to_rgbs_{j}" in g:
+        to_rgb(f"to_rgbs_{j}", f"generator.to_rgbs.{j}", True)
+        j += 1
+    return out
+
+
+def rrdbnet_state_dict_from_jax(variables):
+    """The JAX ``RRDBNet`` -> RealESRNet's keys (``params_ema`` of the
+    release)."""
+    return _renamed_state_dict(variables, _sub([(r"^body_(\d+)$", r"body.\1")]))
+
+
+def parsenet_state_dict_from_jax(variables):
+    """The JAX ``ParseNet`` -> ``ParseNet-latest.pth``'s keys."""
+    return _renamed_state_dict(variables, _sub([
+        (r"^(encoder|body|decoder)_(\d+)$", r"\1.\2"),
+        (r"^shortcut$", "shortcut_func"), (r"^norm$", "norm.norm")]))
+
+
+def retinaface_state_dict_from_jax(variables):
+    """The JAX ``RetinaFace`` -> ``RetinaFace-R50.pth``'s keys."""
+    return _renamed_state_dict(variables, _sub([
+        (r"^(layer\d)_(\d+)$", r"\1.\2"), (r"^downsample_conv$", "downsample.0"),
+        (r"^downsample_bn$", "downsample.1"), (r"^conv$", "0"), (r"^bn$", "1"),
+        (r"^(ClassHead|BboxHead|LandmarkHead)_(\d)$", r"\1.\2.conv1x1")]))

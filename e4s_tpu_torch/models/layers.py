@@ -156,12 +156,12 @@ def init_module_(root: nn.Module, generator: torch.Generator) -> nn.Module:
     """Initialise every parameter and buffer of ``root`` from ``generator``,
     in module order, so a seed gives the same weights on every device (draw
     on the CPU, then move). Modules of this package define
-    ``reset_parameters(generator)``; ``nn.Conv2d``, ``nn.ConvTranspose2d``,
-    ``nn.Linear``, ``nn.PReLU``, ``nn.LayerNorm`` and ``nn.GroupNorm`` get
-    PyTorch's own defaults (uniform in +-1/sqrt(fan_in) for the first
-    three, as PyTorch computes fan_in from the weight's dims 1 and up)."""
+    ``reset_parameters(generator)``; ``nn.Conv2d``, ``nn.Conv3d``,
+    ``nn.ConvTranspose2d``, ``nn.Linear``, ``nn.PReLU``, ``nn.LayerNorm``
+    and ``nn.GroupNorm`` get PyTorch's own defaults (uniform in
+    +-1/sqrt(fan_in) for the first four, as PyTorch computes fan_in from the weight's dims 1 and up)."""
     for m in root.modules():
-        if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
+        if isinstance(m, (nn.Conv2d, nn.Conv3d, nn.ConvTranspose2d, nn.Linear)):
             bound = 1.0 / math.sqrt(m.weight[0].numel())
             with torch.no_grad():
                 m.weight.uniform_(-bound, bound, generator=generator)

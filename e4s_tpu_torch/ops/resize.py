@@ -1,8 +1,11 @@
-"""Resizes with PyTorch's ``F.interpolate`` conventions (counterpart of
-``e4s_tpu/ops/resize.py``, which reproduces these same conventions in JAX).
+"""Resizes with PyTorch's ``F.interpolate`` conventions, and skimage's
+anti-aliased resize (counterpart of ``e4s_tpu/ops/resize.py``, which
+reproduces these same conventions in JAX).
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -48,3 +51,51 @@ def bilinear_resize(x, size, align_corners: bool = False):
 def adaptive_avg_pool2d(x, size):
     """``F.adaptive_avg_pool2d`` (the JAX package re-derives its index rule)."""
     return F.adaptive_avg_pool2d(x, size)
+
+
+@functools.lru_cache(maxsize=None)
+def _skimage_resize_matrix(in_size: int, out_size: int, dtype: torch.dtype,
+                           device: torch.device):
+    """[out, in] matrix of ``skimage.transform.resize`` (order=1,
+    mode='reflect', anti_aliasing) along one axis: a Gaussian pre-filter
+    with sigma = (in/out - 1) / 2, truncated at 4 sigma, 'mirror' border,
+    then bilinear sampling at src = (o + 0.5) * in/out - 0.5."""
+    factor = in_size / out_size
+    Z = np.zeros((out_size, in_size), np.float64)
+    for o in range(out_size):
+        src = min(max((o + 0.5) * factor - 0.5, 0.0), in_size - 1)
+        i0 = int(np.floor(src))
+        i1 = min(i0 + 1, in_size - 1)
+        w = src - i0
+        Z[o, i0] += 1.0 - w
+        Z[o, i1] += w
+    sigma = max(0.0, (factor - 1) / 2)
+    if sigma == 0:
+        return torch.from_numpy(Z).to(device, dtype)
+    radius = int(4.0 * sigma + 0.5)
+    k = np.exp(-0.5 * (np.arange(-radius, radius + 1) / sigma) ** 2)
+    k /= k.sum()
+    G = np.zeros((in_size, in_size), np.float64)
+    for i in range(in_size):
+        for dj, kv in zip(range(-radius, radius + 1), k):
+            j = i + dj
+            if j < 0:  # 'mirror' == reflect_101: -1 -> 1
+                j = -j
+            elif j >= in_size:
+                j = 2 * (in_size - 1) - j
+            G[i, j] += kv
+    return torch.from_numpy((Z @ G).astype(np.float32)).to(device, dtype)
+
+
+def antialiased_resize(x, size):
+    """``skimage.transform.resize`` (order 1, Gaussian anti-aliasing) of the
+    last two axes as two matmuls; integer inputs are resized as float32."""
+    H, W = x.shape[-2], x.shape[-1]
+    out_h, out_w = size
+    if (H, W) == (out_h, out_w):
+        return x
+    if not x.is_floating_point():
+        x = x.float()
+    Ah = _skimage_resize_matrix(H, out_h, x.dtype, x.device)
+    Aw = _skimage_resize_matrix(W, out_w, x.dtype, x.device)
+    return Ah @ x @ Aw.T

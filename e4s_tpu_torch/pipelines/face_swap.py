@@ -2,6 +2,10 @@
 ``e4s_tpu/pipelines/face_swap.py::FaceSwapper``):
 
   (1) optional crop and alignment of source and/or target (host);
+  (1b) with a re-enactor and a restorer, the source is driven by the
+      target's pose (FaceVid2Vid) and restored (GPEN), on the device
+      (``reenact_restore.py``), before every swap path; without them the
+      source is swapped as it is (D = S);
   (2) the swap: with no target mask, one fused pass on the device (parse,
       mask swap, style extraction, texture swap, synthesis, feathered
       stitch or Laplacian blend); with a caller's target mask, the staged
@@ -9,12 +13,10 @@
       stitch);
   (3) after a crop, the inverse-perspective paste into the original frame.
 
-Re-enactment and restoration are not ported: the source face is used as it
-is (D = S), as the JAX package does when those models are absent. With
-``opts.bf16`` Net3 and latent_avg are bfloat16 (``model_io.cast_bf16``) and
+With ``opts.bf16`` Net3 and latent_avg are bfloat16 (``model_io.cast_bf16``) and
 every path computes the swap in the dtype of latent_avg, the masked convs
 in the kernel's bf16 form; the parser, the stitch, the blend and the uint8
-quantisation stay f32.
+quantisation stay f32; the chain runs its four conv nets in bf16.
 """
 
 from __future__ import annotations
@@ -25,11 +27,15 @@ from typing import Optional
 import numpy as np
 import torch
 
+from e4s_tpu_torch.models.facevid2vid.driver import FaceVid2Vid
+from e4s_tpu_torch.models.gpen.face_enhancement import FaceEnhancement
+from e4s_tpu_torch.ops.resize import bilinear_resize
 from e4s_tpu_torch.pipelines.model_io import (
     load_face_parser,
     load_net3,
     resolve_device,
 )
+from e4s_tpu_torch.pipelines.reenact_restore import DeviceReenactRestore
 from e4s_tpu_torch.pipelines.swap_core import (
     lap_blend_stitch,
     make_swap_core,
@@ -49,11 +55,25 @@ def _to_chw01(img) -> np.ndarray:
 class FaceSwapper:
     """Holds the models on one device; call ``swap``, ``swap_from_arrays``
     or ``swap_batch``. ``device`` defaults to the GPU and raises when there
-    is none. ``opts``: the fields of ``options/swap_options.py``."""
+    is none. ``opts``: the fields of ``options/swap_options.py``.
+    ``reenactor`` and ``restorer``: a ``FaceVid2Vid`` and a
+    ``FaceEnhancement`` (``facevid2vid/driver.py::build_reenactor``,
+    ``gpen/face_enhancement.py::build_restorer``), given together; their
+    models run as the on-device chain in front of every swap."""
 
-    def __init__(self, opts, device="cuda", seed: int = 0):
+    def __init__(self, opts, device="cuda", seed: int = 0, reenactor=None,
+                 restorer=None):
         self.opts = opts
         self.device = resolve_device(device)
+        self.chain = None
+        if reenactor is not None or restorer is not None:
+            if not (isinstance(reenactor, FaceVid2Vid)
+                    and isinstance(restorer, FaceEnhancement)):
+                raise ValueError("FaceSwapper takes a FaceVid2Vid re-enactor and "
+                                 "a FaceEnhancement restorer together "
+                                 "(build_reenactor, build_restorer)")
+            self.chain = DeviceReenactRestore(
+                reenactor, restorer, bf16=bool(getattr(opts, "bf16", False)))
         self.net, self.latent_avg = load_net3(opts, device=self.device, seed=seed)
         self.parser = load_face_parser(
             opts, getattr(opts, "faceParsing_ckpt", None), device=self.device,
@@ -75,20 +95,37 @@ class FaceSwapper:
         return _to_chw01(Image.open(path).convert("RGB").resize((S, S)))
 
     def _tensor(self, a, dtype=torch.float32):
+        if isinstance(a, torch.Tensor):
+            return a.to(self.device, dtype)
         return torch.from_numpy(np.ascontiguousarray(a, dtype=None)).to(
             self.device, dtype)
 
     def _u8(self, a01):
-        """[B,3,S,S] in [0,1] -> rounded uint8 on the device."""
+        """[B,3,S,S] in [0,1] (numpy or a tensor) -> rounded uint8 on the
+        device."""
+        if isinstance(a01, torch.Tensor):
+            return (a01.to(self.device) * 255.0 + 0.5).clamp(0, 255).to(torch.uint8)
         return self._tensor(np.clip(a01 * 255.0 + 0.5, 0, 255).astype(np.uint8),
                             torch.uint8)
+
+    def _drive(self, s_u8, t_u8):
+        """The chain, pair by pair, on uint8 [N,3,S,S] device tensors ->
+        D_u8 at out_size (the SR's size, else a rounded bilinear resize)."""
+        S = self.opts.out_size
+        ds = []
+        for i in range(s_u8.shape[0]):
+            d = self.chain(s_u8[i:i + 1], t_u8[i:i + 1])
+            if d.shape[-1] != S:
+                d = torch.round(bilinear_resize(d.float(), (S, S))).clamp(0, 255).to(torch.uint8)
+            ds.append(d)
+        return torch.cat(ds)
 
     def _labels(self, m):
         """Label maps [B,h,w] -> int64 [B,1,h,w] on the device."""
         return self._tensor(np.asarray(m)[:, None].astype(np.int64), torch.int64)
 
     def _parse12(self, arr01) -> np.ndarray:
-        return parse12_host(self.parser, self._tensor(np.asarray(arr01, np.float32)))
+        return parse12_host(self.parser, self._tensor(arr01))
 
     def _save_verbose(self, save_dir, d_lab, t_lab, s_lab):
         """The five mask PNGs of ``--verbose``: both parses, the target's in
@@ -168,11 +205,14 @@ class FaceSwapper:
 
         if save_dir:
             os.makedirs(save_dir, exist_ok=True)
+        D01 = S01
+        if self.chain is not None:  # the re-enacted, restored source
+            D01 = self._drive(self._u8(S01), self._u8(T01)).float() / 255.0
         if target_mask is not None:
-            return self._swap_staged(S01, T01, np.asarray(target_mask),
+            return self._swap_staged(D01, T01, np.asarray(target_mask),
                                      save_dir if verbose else None)
         out_u8, s_lab, _, d_lab, t_lab = self._swap_e2e(
-            self._u8(S01), self._u8(T01), self.latent_avg)
+            self._u8(D01), self._u8(T01), self.latent_avg)
         if verbose and save_dir:
             self._save_verbose(save_dir, d_lab[0].cpu(), t_lab[0].cpu(),
                                s_lab[0].cpu())
@@ -219,15 +259,18 @@ class FaceSwapper:
         the ear and mouth fallbacks of the texture swap are decided over a
         chunk, padding included, as in the JAX package). With
         ``target_masks`` [N,h,w] (float images only) the staged path runs
-        over the whole batch with the feathered stitch."""
+        over the whole batch with the feathered stitch. With the chain, each
+        pair is re-enacted and restored first (uint8 images go to it as
+        they are)."""
         src, tgt = np.asarray(source_arrays), np.asarray(target_arrays)
         u8_in = src.dtype == np.uint8 and tgt.dtype == np.uint8
         if target_masks is not None:
             if u8_in:
                 raise ValueError("target masks take float images in [0,1]")
-            return self._swap_batch_staged(src.astype(np.float32),
-                                           tgt.astype(np.float32),
-                                           np.asarray(target_masks))
+            S01, T01 = src.astype(np.float32), tgt.astype(np.float32)
+            if self.chain is not None:
+                S01 = self._drive(self._u8(S01), self._u8(T01)).float() / 255.0
+            return self._swap_batch_staged(S01, T01, np.asarray(target_masks))
         n = src.shape[0]
         chunk = min(chunk, n)
         outs = []
@@ -236,13 +279,14 @@ class FaceSwapper:
             if not u8_in:
                 s, t = (np.clip(a * 255.0 + 0.5, 0, 255).astype(np.uint8)
                         for a in (s, t))
+            s, t = self._tensor(s, torch.uint8), self._tensor(t, torch.uint8)
+            if self.chain is not None:
+                s = self._drive(s, t)
             if len(s) < chunk:
                 rep = chunk - len(s)
-                s = np.concatenate([s, s[-1:].repeat(rep, 0)])
-                t = np.concatenate([t, t[-1:].repeat(rep, 0)])
-            out_u8 = self._swap_e2e(self._tensor(s, torch.uint8),
-                                    self._tensor(t, torch.uint8),
-                                    self.latent_avg)[0]
+                s = torch.cat([s, s[-1:].expand(rep, -1, -1, -1)])
+                t = torch.cat([t, t[-1:].expand(rep, -1, -1, -1)])
+            out_u8 = self._swap_e2e(s, t, self.latent_avg)[0]
             outs.append(out_u8.cpu().numpy())
         res = np.concatenate(outs)[:n]
         return res if u8_in else res.astype(np.float32) / 255.0

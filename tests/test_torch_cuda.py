@@ -504,3 +504,95 @@ def test_coach_g_and_d_steps_on_the_card_match_the_cpu(card, tmp_path):
             assert abs(lc[k] - lp[k]) <= 1e-4 * max(abs(lp[k]), 1.0), (key, k, lc[k], lp[k])
         differ = sum(int((sc[n] != sp[n]).sum()) for n in sp)
         assert differ <= 1e-2 * sum(t.numel() for t in sp.values()), (key, differ)
+
+
+# the re-enact -> restore chain at a small size: fv2v at 16^2 with narrow
+# nets, RealESRNet with 1 block, GPEN at 32; the swap at 64^2 (K=7)
+CHAIN_FV2V = dict(
+    size=16, kp_kwargs=dict(block_expansion=8, max_features=64, reshape_channel=128,
+                            reshape_depth=4, num_blocks=2),
+    gen_kwargs=dict(feature_channel=4, block_expansion=64, max_features=16,
+                    num_down_blocks=2, reshape_channel=4, reshape_depth=4,
+                    num_resblocks=1, dense_motion_params=dict(
+                        block_expansion=8, num_blocks=2, max_features=32)))
+CHAIN_GPEN = {"in_size": 32, "force_one_face": True}
+# D card vs CPU: cuDNN sums in another order, so a value on a rounding
+# boundary moves a level, and at random weights a ParseNet argmax on a near
+# tie can flip and move the feathered mask: 40 dB; the final swap amplifies
+# D's differences through the pooled style codes: 30 dB, the JAX package's
+# bar at random weights
+CHAIN_PSNR_D, CHAIN_PSNR_SWAP = 40.0, 30.0
+
+
+def _psnr(a, b):
+    mse = np.mean((np.asarray(a, np.float64) - np.asarray(b, np.float64)) ** 2)
+    return float("inf") if mse == 0 else 10 * np.log10(255.0 ** 2 / mse)
+
+
+def _chain_swapper(dev):
+    from e4s_tpu_torch.models.facevid2vid.driver import build_reenactor
+    from e4s_tpu_torch.models.gpen.face_enhancement import build_restorer
+    from e4s_tpu_torch.models.gpen.rrdbnet import RRDBNet
+    from e4s_tpu_torch.pipelines.model_io import materialise
+
+    opts = types.SimpleNamespace(
+        num_seg_cls=12, out_size=64, remaining_layer_idx=7, n_styles=10,
+        start_from_latent_avg=True, encoder_size=64, parser_size=64)
+    restorer = build_restorer(CHAIN_GPEN, device=dev, seed=4)
+    restorer.srmodel = materialise(lambda: RRDBNet(scale=4, num_block=1), None, 5, dev)
+    return FaceSwapper(opts, device=dev, seed=2,
+                       reenactor=build_reenactor(None, device=dev, seed=3, **CHAIN_FV2V),
+                       restorer=restorer)
+
+
+def _chain_pair():
+    rng = np.random.RandomState(5)
+    return [np.kron(rng.randint(0, 256, (1, 3, 8, 8)), np.ones((8, 8))).astype(np.uint8)
+            for _ in range(2)]
+
+
+@pytest.mark.cuda
+def test_reenact_restore_swap_on_the_card_matches_the_cpu(card):
+    """The chain (the stand-in face of ``force_one_face``) and the fused swap
+    after it, card against CPU; 7 kernel launches on the card."""
+    s, t = _chain_pair()
+    out = {}
+    for dev in ("cuda", "cpu"):
+        swapper = _chain_swapper(dev)
+        d = swapper.chain(torch.from_numpy(s).to(dev), torch.from_numpy(t).to(dev))
+        pmc.patch_mod_conv3_nhwc.launches = 0
+        img = swapper.swap_from_arrays(s / 255.0, t / 255.0)
+        assert pmc.patch_mod_conv3_nhwc.launches == (7 if dev == "cuda" else 0)
+        assert len(swapper.chain.last_faces) == 1
+        out[dev] = (d.cpu().numpy(), np.asarray(img))
+    assert _psnr(out["cuda"][0], out["cpu"][0]) >= CHAIN_PSNR_D
+    assert _psnr(out["cuda"][1], out["cpu"][1]) >= CHAIN_PSNR_SWAP
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("branch", ["two faces", "face under 100 px", "no face"])
+def test_reenact_restore_branches_on_the_card_match_the_cpu(card, branch):
+    """The branches the JAX chain leaves to its host glue, with the
+    detections fed in (boxes, landmarks and scores at the SR's 64^2)."""
+    pts = np.array([[0.38, 0.62, 0.50, 0.40, 0.60], [0.42, 0.42, 0.55, 0.70, 0.70]])
+
+    def face(x0, y0, side, score):
+        return ([x0, y0, x0 + side, y0 + side, score],
+                np.concatenate([x0 + side * pts[0], y0 + side * pts[1]]))
+
+    faces = {"two faces": [face(4, 4, 40, 0.95), face(24, 20, 36, 0.99)],
+             "face under 100 px": [face(12, 10, 40, 0.97)],
+             "no face": [face(12, 10, 40, 0.5)]}[branch]
+    s, t = _chain_pair()
+    out = {}
+    for dev in ("cuda", "cpu"):
+        chain = _chain_swapper(dev).chain
+        dets = torch.tensor([f[0] for f in faces], dtype=torch.float32, device=dev)
+        lms = torch.tensor(np.stack([f[1] for f in faces]), dtype=torch.float32, device=dev)
+        chain._det_stage = lambda up: (dets[:, :4], lms, dets[:, 4])
+        chain.enh.force_one_face = False
+        d = chain(torch.from_numpy(s).to(dev), torch.from_numpy(t).to(dev))
+        out[dev] = (d.cpu().numpy(), len(chain.last_faces))
+    want = {"two faces": 2, "face under 100 px": 1, "no face": 0}[branch]
+    assert out["cuda"][1] == out["cpu"][1] == want
+    assert _psnr(out["cuda"][0], out["cpu"][0]) >= CHAIN_PSNR_D

@@ -139,26 +139,40 @@ def _port(name, v):
 # -------------------------------------------------------------- criteria
 
 
+@pytest.fixture(scope="module")
+def criteria_want(nets):
+    """The JAX criteria's outputs on the test's inputs, all six from one
+    jitted program (eagerly, each op of each trunk compiles alone)."""
+
+    @jax.jit
+    def run(nets, y_hat, y, x112):
+        unet = nets["unet"]
+        return {
+            "irse50": JIRSE50().apply(_sub(nets["id"], "facenet"), x112),
+            "unet": [JUNet().apply(unet, y)] + JUNet().apply(unet, y, extract_feats_only=True),
+            "alex": [JLPIPS("alex").apply(nets["alex"], y_hat, y)],
+            "vgg": [JLPIPS("vgg").apply(nets["vgg"], y_hat, y)],
+            "id": list(JIDLoss().apply(nets["id"], y_hat, y)),
+            "parsing": list(JFaceParsingLoss().apply(nets["parsing"], y_hat, y)),
+        }
+
+    return jax.tree_util.tree_map(
+        np.asarray, run(nets, _img(5), _img(6), _img(7, (1, 3, 112, 112))))
+
+
 @pytest.mark.parametrize("name", ["irse50", "alex", "vgg", "unet", "id", "parsing"])
-def test_criterion_matches_jax(nets, name):
+def test_criterion_matches_jax(nets, criteria_want, name):
     y_hat, y = _img(5), _img(6)
     t = torch.from_numpy
+    want = criteria_want[name]
     if name == "irse50":
-        x = _img(7, (1, 3, 112, 112))
-        v = _sub(nets["id"], "facenet")
-        want = JIRSE50().apply(v, x)
-        got = _port(name, nets["id"])(t(x))
+        got = _port(name, nets["id"])(t(_img(7, (1, 3, 112, 112))))
     elif name == "unet":
-        v = nets["unet"]
-        want = [JUNet().apply(v, y)] + JUNet().apply(v, y, extract_feats_only=True)
-        model = _port(name, v)
+        model = _port(name, nets["unet"])
         got = [model(t(y))] + model(t(y), extract_feats_only=True)
     elif name in ("alex", "vgg"):
-        want = [JLPIPS(name).apply(nets[name], y_hat, y)]
         got = [_port(name, nets[name])(t(y_hat), t(y))]
     else:
-        jmod = JIDLoss() if name == "id" else JFaceParsingLoss()
-        want = jmod.apply(nets[name], y_hat, y)
         got = _port(name, nets[name])(t(y_hat), t(y))
     assert len(got) == len(want)
     for g, w in zip(got, want):

@@ -410,12 +410,13 @@ def test_create_masks_matches_jax(op):
 
 def test_port_imports_no_jax_and_nothing_of_e4s_tpu():
     """Read every module's imports: the port stands alone (torch, numpy,
-    PIL), and so do its GPU scripts."""
+    PIL; no cv2 or skimage, which the card's machine lacks), and so do its
+    GPU scripts."""
     root = pathlib.Path(__file__).resolve().parent.parent
     files = sorted((root / "e4s_tpu_torch").rglob("*.py")) + [
         root / "chip_smoke.py", root / "scripts" / "profile_torch_swap.py"]
     assert len(files) > 10
-    banned = ("jax", "jaxlib", "flax", "optax", "e4s_tpu")
+    banned = ("jax", "jaxlib", "flax", "optax", "e4s_tpu", "cv2", "skimage")
     for f in files:
         for node in ast.walk(ast.parse(f.read_text())):
             names = []

@@ -181,7 +181,7 @@ def test_r1_penalty_and_its_gradient_match_jax():
     def j_r1(params):
         return jadv.d_r1_loss(lambda q, img: jm.apply({"params": q}, img), params, x)
 
-    want, want_g = jax.value_and_grad(j_r1)(p)
+    want, want_g = jax.jit(jax.value_and_grad(j_r1))(p)
     tm.requires_grad_(True)
     img = torch.from_numpy(x).requires_grad_(True)
     got = adv_loss.d_r1_loss(tm(img), img)
@@ -231,7 +231,7 @@ def test_style_loss_with_a_region_mask_matches_jax():
         w = layer["weight"]
         layer["weight"] = (rng.standard_normal(w.shape) / np.sqrt(np.prod(w.shape[1:]))
                            ).astype(np.float32)
-    want = jm.apply(v, x, x_hat, mask_x=hair, mask_x_hat=hair)
+    want = jax.jit(lambda v: jm.apply(v, x, x_hat, mask_x=hair, mask_x_hat=hair))(v)
     model = StyleLoss()
     model.vgg16_act.load_state_dict(
         features_state_dict_from_jax(v["params"]["vgg16_act"], "vgg"))

@@ -58,14 +58,42 @@ def _leaf(rng, path, shape):
     return n
 
 
-def numpy_variables(shape_tree, seed: int):
-    """Nested dict of ShapeDtypeStructs -> same tree of seeded numpy arrays."""
+def aux_leaf(rng, path, shape):
+    """A value for one leaf of the re-enactment and restoration nets
+    (FaceVid2Vid, GPEN, RealESRNet, RetinaFace, ParseNet): plain convs and
+    linears at a fan-in scale (2-D and 3-D alike), frozen BatchNorms near
+    identity, GPEN's equalised layers at unit scale (they scale themselves)
+    with modulation biases around 1."""
+    name = path[-1]
+    size = int(np.prod(shape)) if shape else 1
+    n = rng.standard_normal(size, dtype=np.float32).reshape(shape)
+    equalised = path[0] in ("generator", "final_linear") or path[0].startswith("ecd")
+    if name == "running_var":
+        return rng.uniform(0.5, 1.5, shape).astype(np.float32)
+    if name == "running_mean":
+        return 0.1 * n
+    if name == "bias" and "modulation" in path:
+        return 1.0 + 0.1 * n
+    if name in ("bias", "noise_weight") or name.endswith("_bias"):
+        return 0.1 * n
+    if name == "weight" and len(path) > 1 and ("norm" in path[-2] or "bn" in path[-2]):
+        return 1.0 + 0.1 * n
+    if equalised:
+        return n
+    if len(shape) >= 2:  # conv / linear weights: fan-in
+        return n / np.sqrt(np.prod(shape[1:]))
+    return n
+
+
+def numpy_variables(shape_tree, seed: int, leaf=_leaf):
+    """Nested dict of ShapeDtypeStructs -> same tree of seeded numpy arrays
+    (each leaf's value from ``leaf(rng, path, shape)``)."""
     rng = np.random.default_rng(seed)
 
     def walk(node, path):
         if hasattr(node, "items"):
             return {k: walk(v, path + (k,)) for k, v in node.items()}
-        return np.asarray(_leaf(rng, path, tuple(node.shape)), np.float32)
+        return np.asarray(leaf(rng, path, tuple(node.shape)), np.float32)
 
     return walk(shape_tree, ())
 
