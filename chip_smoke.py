@@ -75,7 +75,26 @@ Phases, in order; the first that fails ends the run with a non-zero exit:
      card against the CPU: D and the final image as PSNR;
  19. the chain's other branches, each once on the card and on the CPU at
      the sizes of 18, with the detections fed in (two faces, a face under
-     100 px, no face): D as PSNR.
+     100 px, no face): D as PSNR;
+ 20. GPEN's own API at full width (RealESRNet x4 with 23 blocks,
+     RetinaFace-R50, GPEN-BFR-512, ParseNet 512; seeded random weights,
+     ``force_one_face``), CUDA-event ms of 3 warm calls and peak memory
+     each: ``gpen_demo`` unaligned on the example target at 256^2 (-> 1024^2),
+     ``FaceEnhancement.process`` aligned on a 512^2 crop (-> 2048^2), unaligned
+     with ``GPENFullGeneratorSR`` 512 -> 1024, ``RetinaFaceDetector.detect``
+     at 512^2;
+ 21. the other entry points at full width: ``drive_source`` (FaceVid2Vid
+     vox-256, a 1024^2 source and 3 driving frames; ms per frame),
+     ``faceSwapping_pipeline`` on the example pair at 1024^2 (13 launches
+     per call), the pSp ``GradualStyleEncoder`` (IR-SE-50, 18 styles) at
+     256^2, and the demo helper at 1024^2 in f32 and bf16 (``set_source``,
+     ``set_reference``, ``texture_edit`` of hair and eyes at 0.5,
+     ``shape_edit``, ``generate``: ms each, 13 launches per generation);
+ 22. those entry points at the CPU tests' sizes on the card against the
+     CPU: ``process`` unaligned, aligned and with in_size < out_size,
+     ``detect``, ``drive_source``, the four pSp encoders and the demo's
+     ``generate`` at 256^2; uint8 PSNR for images and max relative error
+     for tensors, each against its bar; then the wall time of 20-22.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
 line before it is the per-kernel JSON summary. TF32 is off throughout.
@@ -1272,6 +1291,302 @@ def phase_reenact_vs_cpu():
             raise SystemExit(f"FAIL reenact: {name} pasted {res['cuda', name, 'faces']}")
 
 
+# the JAX package's remaining entry points (phases 20-22)
+# card against CPU at the small sizes of the CPU tests, and why:
+# - images: the chain's bar (PSNR_D_CARD_CPU): a value on a rounding
+#   boundary moves a level, a ParseNet argmax on a near tie moves the mask;
+# - tensors, relative to max |CPU value|: cuDNN and the CPU's convolutions
+#   sum in other orders through deep nets (IR-50, R50): 1e-3;
+# - FaceVid2Vid's drive: at random weights its Gaussian keypoint heatmaps
+#   (variance 0.01) turn keypoint rounding (~1e-6) into ~5e-4 of the image
+#   (tests/test_torch_drive.py, port against JAX on one CPU): 1e-2
+REL_CARD_CPU = 1e-3
+REL_DRIVE_CARD_CPU = 1e-2
+SMALL_PSP = 128  # the pSp encoders' side in phase 22 (tests/test_torch_psp.py)
+
+
+def _example_bgr(name, S, folder=EXAMPLE):
+    from PIL import Image
+
+    img = Image.open(os.path.join(folder, name)).convert("RGB").resize((S, S))
+    return np.ascontiguousarray(np.asarray(img)[:, :, ::-1])
+
+
+def _event_ms(fn, n=3):
+    """One warm-up call, then ``n`` calls each between two CUDA events
+    (the device timeline from the call's first queued work to after its
+    result is on the host). Returns (ms per call, the last result)."""
+    fn()
+    times = []
+    for _ in range(n):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda.synchronize()
+        start.record()
+        out = fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return times, out
+
+
+def _fmt(times):
+    return ", ".join(f"{t:.2f}" for t in times)
+
+
+def _peak_reset():
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def _peak():
+    return f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB"
+
+
+def phase_gpen_api():
+    """GPEN's own API at full width (RealESRNet x4 with 23 blocks,
+    RetinaFace-R50, GPEN-BFR-512, ParseNet 512; seeded random weights,
+    ``force_one_face``): ``gpen_demo`` unaligned on the example target at
+    256^2, aligned on a 512^2 crop (then the SR to 2048^2), unaligned with
+    ``GPENFullGeneratorSR`` 512 -> 1024, and ``RetinaFaceDetector.detect``
+    on a 512^2 image."""
+    from e4s_tpu_torch.models.gpen.face_enhancement import build_restorer, gpen_demo
+    from e4s_tpu_torch.models.gpen.retinaface import RetinaFaceDetector
+
+    t0 = time.perf_counter()
+    enh = build_restorer(FULL_GPEN, device="cuda", seed=6)
+    log(f"[gpen] GPEN-512 + RealESRNet x4 + RetinaFace-R50 + ParseNet built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    tgt256 = _example_bgr("target.jpg", 256)
+    crop512 = _example_bgr("target.jpg", 512)
+    for label, fn, shape in (
+            ("unaligned 256^2 -> 1024^2 (gpen_demo)", lambda: gpen_demo(tgt256, enh),
+             (1024, 1024, 3)),
+            ("aligned 512^2 crop -> GPEN 512 -> SR 2048^2",
+             lambda: enh.process(crop512, aligned=True)[0], (2048, 2048, 3))):
+        _peak_reset()
+        times, out = _event_ms(fn)
+        log(f"[gpen] {label}: {_fmt(times)} ms (CUDA events, 3 warm calls); peak "
+            f"{_peak()}; mean pixel {out.mean():.2f}")
+        if out.shape != shape or out.dtype != np.uint8:
+            raise SystemExit(f"FAIL gpen: {label} gave {out.shape} {out.dtype}")
+    _, crops, faces = enh.process(tgt256)
+    if len(crops) != 1 or faces[0].shape != (512, 512, 3):
+        raise SystemExit(f"FAIL gpen: {len(crops)} faces pasted, want force_one_face's one")
+    del enh
+    t0 = time.perf_counter()
+    enh_sr = build_restorer(FULL_GPEN, device="cuda", seed=6, out_size=1024)
+    log(f"[gpen] GPENFullGeneratorSR 512 -> 1024 (channel_multiplier 2) built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    _peak_reset()
+    times, (out, crops, faces) = _event_ms(lambda: enh_sr.process(tgt256))
+    log(f"[gpen] unaligned, out_size 1024 (the face at 1024^2, pasted at 512^2): "
+        f"{_fmt(times)} ms; peak {_peak()}; GPEN's face {faces[0].shape}")
+    if out.shape != (1024, 1024, 3) or faces[0].shape != (1024, 1024, 3):
+        raise SystemExit(f"FAIL gpen: out_size 1024 gave {out.shape}, face {faces[0].shape}")
+    det = RetinaFaceDetector(enh_sr.facedetector)
+    img512 = _example_bgr("source.jpg", 512)
+    _peak_reset()
+    times, (dets, lms) = _event_ms(lambda: det.detect(img512))
+    log(f"[gpen] RetinaFaceDetector.detect at 512^2: {_fmt(times)} ms; peak {_peak()}; "
+        f"{len(dets)} detections (random weights)")
+    if dets.shape[1:] != (5,) or lms.shape[1:] != (10,):
+        raise SystemExit(f"FAIL gpen: detect gave {dets.shape} {lms.shape}")
+    del enh_sr, det
+    torch.cuda.empty_cache()
+
+
+def _demo_opts(S, n_styles, **kw):
+    return _opts(S, n_styles, regions=["hair"], **kw)
+
+
+def _demo_session(helper, S, warm=True):
+    """The demo's callbacks on the faceedit pair at S^2: ms of each
+    (CUDA events around one call, after a warm-up session when ``warm``)
+    and the masked-conv launches of each generation."""
+    src = _example_bgr("source.jpg", S, EDIT_EXAMPLE)[:, :, ::-1].copy()
+    ref = _example_bgr("reference.jpg", S, EDIT_EXAMPLE)[:, :, ::-1].copy()
+
+    def edited():
+        m = np.array(helper.initial_colored_map)
+        q = m.shape[0] // 4
+        m[q:2 * q, q:2 * q] = m[0, 0]  # a square of background
+        return m
+
+    steps = (("set_source", lambda: helper.set_source(src)),
+             ("set_reference", lambda: helper.set_reference(ref)),
+             ("texture_edit", lambda: helper.texture_edit(["hair", "eyes"], 0.5)[0]),
+             ("shape_edit", lambda: helper.shape_edit(edited())[0]),
+             ("generate", lambda: helper.generate(edited(), ["hair", "eyes"], 0.5)))
+    for _, fn in steps if warm else ():
+        fn()
+    res = {}
+    for name, fn in steps:
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda.synchronize()
+        _reset_launches()
+        start.record()
+        out = fn()
+        end.record()
+        torch.cuda.synchronize()
+        res[name] = (start.elapsed_time(end), _launch_counts(), out)
+    return res
+
+
+def phase_entry_points():
+    """``drive_source``, ``faceSwapping_pipeline``, the pSp
+    ``GradualStyleEncoder`` and the demo helper at full width; 13
+    masked-conv launches per swap and per demo generation."""
+    from e4s_tpu_torch.demo.gradio_demo import DemoHelper
+    from e4s_tpu_torch.models.facevid2vid.driver import build_reenactor, drive_source
+    from e4s_tpu_torch.models.psp_legacy import GradualStyleEncoder
+    from e4s_tpu_torch.pipelines.face_swap import faceSwapping_pipeline
+    from e4s_tpu_torch.pipelines.model_io import materialise
+
+    fv2v = build_reenactor(None, device="cuda", seed=5)
+    src01 = _batch_pairs(1)[0].astype(np.float32) / 255.0
+    drivers = [t[None].astype(np.float32) / 255.0 for t in _batch_pairs(3)[1]]
+    _peak_reset()
+    times, preds = _event_ms(lambda: drive_source(fv2v, src01, drivers))
+    log(f"[entry] drive_source, 1024^2 source and 3 driving frames (FaceVid2Vid "
+        f"vox-256): {_fmt([t / 3 for t in times])} ms per frame; peak {_peak()}")
+    if len(preds) != 3 or any(p.shape != (1, 3, 256, 256) or not np.isfinite(p).all()
+                              for p in preds):
+        raise SystemExit("FAIL entry: drive_source results")
+    del fv2v
+
+    src, tgt = os.path.join(EXAMPLE, "source.jpg"), os.path.join(EXAMPLE, "target.jpg")
+    for r in range(2):
+        torch.cuda.synchronize()
+        _reset_launches()
+        t0 = time.perf_counter()
+        arr = np.asarray(faceSwapping_pipeline(src, tgt, _opts(1024, 18), None))
+        torch.cuda.synchronize()
+        total, _ = _launch_counts()
+        log(f"[entry] faceSwapping_pipeline at 1024^2 (models built in the call): "
+            f"{(time.perf_counter() - t0) * 1e3:.1f} ms host, patch_mod_conv3 launches "
+            f"{total}, mean pixel {arr.mean():.2f}")
+        if total != PMC_LAUNCHES_PER_SWAP or arr.shape != (1024, 1024, 3):
+            raise SystemExit(f"FAIL entry: faceSwapping_pipeline {total} launches, "
+                             f"{arr.shape}")
+
+    enc = materialise(lambda: GradualStyleEncoder(18, mode="ir_se"), None, 9, "cuda")
+    x = torch.from_numpy(_batch_pairs(1)[0] / 127.5 - 1.0).float().cuda()
+    x = torch.nn.functional.interpolate(x, size=(256, 256), mode="bilinear")
+    with torch.no_grad():
+        times, w = _event_ms(lambda: enc(x), n=5)
+    log(f"[entry] GradualStyleEncoder (IR-SE-50, 18 styles) at 256^2, B=1: "
+        f"{_fmt(times)} ms")
+    if w.shape != (1, 18, 512) or not torch.isfinite(w).all():
+        raise SystemExit(f"FAIL entry: GradualStyleEncoder gave {tuple(w.shape)}")
+    del enc
+
+    for bf16 in (False, True):
+        tag = "bf16" if bf16 else "f32"
+        helper = DemoHelper(_demo_opts(1024, 18, bf16=bf16), device="cuda", seed=0)
+        _peak_reset()
+        res = _demo_session(helper, 1024)
+        log(f"[demo] {tag} 1024^2: " + ", ".join(
+            f"{k} {v[0]:.1f} ms" for k, v in res.items()) + f" (CUDA events); peak {_peak()}")
+        for name in ("texture_edit", "shape_edit", "generate"):
+            ms, (total, n16), out = res[name]
+            log(f"[demo] {tag} {name}: patch_mod_conv3 launches {total} (bf16 {n16}), "
+                f"mean pixel {out.mean():.2f}")
+            if (total != PMC_LAUNCHES_PER_SWAP or n16 != (total if bf16 else 0)
+                    or out.shape != (1024, 1024, 3)):
+                raise SystemExit(f"FAIL demo: {tag} {name} {total} launches ({n16} bf16)")
+        del helper
+        torch.cuda.empty_cache()
+
+
+def _rel(got, want):
+    got, want = (np.asarray(a, np.float64) for a in (got, want))
+    return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-30))
+
+
+def _check(label, value, bar, higher_is_better):
+    ok = value >= bar if higher_is_better else value <= bar
+    unit = " dB" if higher_is_better else ""
+    log(f"[small] {label}: card vs cpu {'uint8 PSNR' if higher_is_better else 'max rel err'} "
+        f"{value:.4g}{unit} (bar {bar:g}{unit})")
+    if not ok:
+        raise SystemExit(f"FAIL small: {label} {value:.4g}, bar {bar:g}")
+
+
+def _small_restorer(device, out_size=None):
+    from e4s_tpu_torch.models.gpen.face_enhancement import build_restorer
+    from e4s_tpu_torch.models.gpen.rrdbnet import RRDBNet
+    from e4s_tpu_torch.pipelines.model_io import materialise
+
+    in_size = 64 if out_size is None else out_size // 2
+    enh = build_restorer({"in_size": in_size, "narrow": 0.125, "force_one_face": True},
+                         device=device, seed=11, out_size=out_size)
+    enh.srmodel = materialise(lambda: RRDBNet(scale=4, num_block=2), None, 12, device)
+    return enh
+
+
+def phase_small_vs_cpu():
+    """The new entry points at the CPU tests' sizes, card against CPU."""
+    from e4s_tpu_torch.demo.gradio_demo import DemoHelper
+    from e4s_tpu_torch.models.facevid2vid.driver import build_reenactor, drive_source
+    from e4s_tpu_torch.models.gpen.retinaface import RetinaFaceDetector, detect_on_device
+    from e4s_tpu_torch.models import psp_legacy
+    from e4s_tpu_torch.pipelines.model_io import materialise
+
+    img32 = _example_bgr("target.jpg", 32)
+    img48 = _example_bgr("target.jpg", 48)
+    det_img = np.ascontiguousarray(_example_bgr("source.jpg", 160)[:128])
+    src01 = _batch_pairs(1, 128)[0].astype(np.float32) / 255.0
+    drivers = [t[None].astype(np.float32) / 255.0 for t in _batch_pairs(2, 128)[1]]
+    x_psp = torch.from_numpy(src01 * 2 - 1)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        enh, enh_sr = _small_restorer(dev), _small_restorer(dev, out_size=64)
+        o = {"unaligned": enh.process(img32)[0],
+             "aligned": enh.process(img48, aligned=True)[0],
+             "in < out": enh_sr.process(img32)[0]}
+        det = RetinaFaceDetector(enh.facedetector)
+        with torch.no_grad():
+            x = torch.from_numpy(det_img).to(dev).float().permute(2, 0, 1)[None]
+            o["scores"] = detect_on_device(det.net, x)[2].cpu().numpy()
+        if dev == "cpu":  # a threshold in a gap of the CPU's scores
+            s = np.sort(o["scores"])[::-1]
+            k = next(i for i in range(20, len(s) - 1) if s[i] - s[i + 1] > 1e-4)
+            thr = float((s[k] + s[k + 1]) / 2)
+        o["detect"] = det.detect(det_img, confidence_threshold=thr, keep_top_k=10)
+        fv2v = build_reenactor(None, device=dev, seed=13, **SMALL_FV2V)
+        o["drive_source"] = drive_source(fv2v, src01, drivers)
+        for name in ("GradualStyleEncoder", "BackboneEncoderUsingLastLayerIntoW",
+                     "BackboneEncoderUsingLastLayerIntoWPlus",
+                     "CustomBackboneEncoderUsingLastLayerIntoWPlus"):
+            enc = materialise(getattr(psp_legacy, name), None, 14, dev)
+            with torch.no_grad():
+                r = enc(torch.nn.functional.interpolate(x_psp, size=(SMALL_PSP,) * 2,
+                                                        mode="bilinear").to(dev))
+            o[name] = [t.cpu().numpy() for t in (r if isinstance(r, tuple) else (r,))]
+        helper = DemoHelper(_demo_opts(256, 14), device=dev, seed=1)
+        o["demo generate"] = _demo_session(helper, 256, warm=False)["generate"][2]
+        out[dev] = o
+        del enh, enh_sr, det, fv2v, helper
+    got, want = out["cuda"], out["cpu"]
+    for k in ("unaligned", "aligned", "in < out", "demo generate"):
+        if got[k].shape != want[k].shape:
+            raise SystemExit(f"FAIL small: {k} {got[k].shape} vs {want[k].shape}")
+        _check(k, _psnr(got[k], want[k]), PSNR_D_CARD_CPU, True)
+    (gd, gl), (wd, wl) = got["detect"], want["detect"]
+    if gd.shape != wd.shape or len(wd) == 0:
+        raise SystemExit(f"FAIL small: detect kept {len(gd)} on the card, {len(wd)} on the CPU")
+    log(f"[small] detect at 128 x 160: {len(wd)} kept on both")
+    _check("detect boxes and scores", _rel(gd, wd), REL_CARD_CPU, False)
+    _check("detect landmarks", _rel(gl, wl), REL_CARD_CPU, False)
+    _check("drive_source", max(_rel(g, w) for g, w in zip(got["drive_source"],
+                                                        want["drive_source"])),
+           REL_DRIVE_CARD_CPU, False)
+    for name in [k for k in want if k.endswith("WPlus") or "Encoder" in k]:
+        _check(name, max(_rel(g, w) for g, w in zip(got[name], want[name])),
+               REL_CARD_CPU, False)
+
+
 def _per_swap_line(rows, launches, B=1, dtype=torch.float32):
     def total(key):
         return sum(r[key] for r in rows)
@@ -1322,6 +1637,11 @@ def main():
     phase_training_vs_cpu()
     phase_reenact_swaps()
     phase_reenact_vs_cpu()
+    t0 = time.perf_counter()
+    phase_gpen_api()
+    phase_entry_points()
+    phase_small_vs_cpu()
+    log(f"[time] phases 20-22: {time.perf_counter() - t0:.1f} s wall")
     row = dict(route="cuda", replaces="e4s_tpu/ops/pallas/modconv_tpu.py:39",
                library_ms=None)
     summary = {"kernels": [{

@@ -252,12 +252,9 @@ def _bn(out, key, params, stats):
     out[f"{key}.num_batches_tracked"] = torch.zeros((), dtype=torch.long)
 
 
-def irse50_state_dict_from_jax(variables):
-    """{"params", "batch_stats"} of the JAX ``IRSE50Backbone`` -> the
-    ``model_ir_se50.pth`` state_dict that the port's ``IRSE50Backbone``
-    loads; the inverse of ``convert_irse50``. The JAX embedding BatchNorm
-    has no affine part: its weight and bias become 1 and 0."""
-    p, st = variables["params"], variables["batch_stats"]
+def _ir_trunk(p, st):
+    """The JAX IR-50 trunk's ``input_*`` and ``body_{i}`` (BatchNorm IR or
+    IR-SE units) -> ``input_layer.*`` and ``body.{i}.*``."""
     out = {"input_layer.0.weight": _t(p["input_conv"]["weight"]),
            "input_layer.2.weight": _t(p["input_prelu"]["weight"])}
     _bn(out, "input_layer.1", p.get("input_bn", {}), st["input_bn"])
@@ -272,13 +269,72 @@ def irse50_state_dict_from_jax(variables):
         out[f"{q}.res_layer.2.weight"] = _t(b["res_prelu"]["weight"])
         out[f"{q}.res_layer.3.weight"] = _t(b["res_conv2"]["weight"])
         _bn(out, f"{q}.res_layer.4", b["res_norm2"], bs["res_norm2"])
-        out[f"{q}.res_layer.5.fc1.weight"] = _t(b["res_se"]["fc1"]["weight"])
-        out[f"{q}.res_layer.5.fc2.weight"] = _t(b["res_se"]["fc2"]["weight"])
+        if "res_se" in b:
+            out[f"{q}.res_layer.5.fc1.weight"] = _t(b["res_se"]["fc1"]["weight"])
+            out[f"{q}.res_layer.5.fc2.weight"] = _t(b["res_se"]["fc2"]["weight"])
         i += 1
+    return out
+
+
+def irse50_state_dict_from_jax(variables):
+    """{"params", "batch_stats"} of the JAX ``IRSE50Backbone`` -> the
+    ``model_ir_se50.pth`` state_dict that the port's ``IRSE50Backbone``
+    loads; the inverse of ``convert_irse50``. The JAX embedding BatchNorm
+    has no affine part: its weight and bias become 1 and 0."""
+    p, st = variables["params"], variables["batch_stats"]
+    out = _ir_trunk(p, st)
     _bn(out, "output_layer.0", p["output_bn"], st["output_bn"])
     out["output_layer.3.weight"] = _t(p["output_linear_weight"])
     out["output_layer.3.bias"] = _t(p["output_linear_bias"])
     _bn(out, "output_layer.4", p.get("output_bn1d", {}), st["output_bn1d"])
+    return out
+
+
+def _linear(out, key, params):
+    out[f"{key}.weight"] = _t(params["weight"])
+    out[f"{key}.bias"] = _t(params["bias"])
+
+
+def psp_gradual_state_dict_from_jax(variables):
+    """The JAX ``GradualStyleEncoder`` -> pSp's keys (``input_layer``,
+    ``body``, ``styles.{j}.convs.{2i}`` / ``.linear``, ``latlayer1/2``)."""
+    p, st = variables["params"], variables["batch_stats"]
+    out = _ir_trunk(p["trunk"], st["trunk"])
+    j = 0
+    while f"styles_{j}" in p:
+        blk = p[f"styles_{j}"]
+        i = 0
+        while f"convs_{i}" in blk:
+            _linear(out, f"styles.{j}.convs.{2 * i}", blk[f"convs_{i}"])
+            i += 1
+        _linear(out, f"styles.{j}.linear", blk["linear"])
+        j += 1
+    for name in ("latlayer1", "latlayer2"):
+        _linear(out, name, p[name])
+    return out
+
+
+def psp_w_state_dict_from_jax(variables):
+    """The JAX ``BackboneEncoderUsingLastLayerIntoW`` -> pSp's keys."""
+    p, st = variables["params"], variables["batch_stats"]
+    out = _ir_trunk(p["trunk"], st["trunk"])
+    _linear(out, "linear", p["linear"])
+    return out
+
+
+def psp_wplus_state_dict_from_jax(variables):
+    """The JAX ``BackboneEncoderUsingLastLayerIntoWPlus`` or
+    ``CustomBackboneEncoderUsingLastLayerIntoWPlus`` -> pSp's keys
+    (``output_layer_2.{0,3}``, ``linear``; the custom head's
+    ``structure_linear``)."""
+    p, st = variables["params"], variables["batch_stats"]
+    out = _ir_trunk(p["trunk"], st["trunk"])
+    _bn(out, "output_layer_2.0", p["output_bn"], st["output_bn"])
+    out["output_layer_2.3.weight"] = _t(p["output_linear_weight"])
+    out["output_layer_2.3.bias"] = _t(p["output_linear_bias"])
+    _linear(out, "linear", p["linear"])
+    if "structure_linear" in p:
+        _linear(out, "structure_linear", p["structure_linear"])
     return out
 
 
@@ -464,6 +520,13 @@ def gpen_state_dict_from_jax(variables, blur_kernel=(1, 3, 3, 1)):
         to_rgb(f"to_rgbs_{j}", f"generator.to_rgbs.{j}", True)
         j += 1
     return out
+
+
+def gpen_sr_state_dict_from_jax(variables, blur_kernel=(1, 3, 3, 1)):
+    """The JAX ``GPENFullGeneratorSR`` params -> the reference's
+    FullGenerator_SR keys (the same layout as GPEN-BFR's: ``ecd*``,
+    ``final_linear``, ``generator.*``, with the decoder's extra scales)."""
+    return gpen_state_dict_from_jax(variables, blur_kernel)
 
 
 def rrdbnet_state_dict_from_jax(variables):

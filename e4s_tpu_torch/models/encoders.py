@@ -85,9 +85,9 @@ class _Subsample(nn.Module):
 class BottleneckIRSE(nn.Module):
     """IR-SE residual unit: ``norm`` "in" is the RGI encoder's variant
     (InstanceNorm, no parameters), "bn" the ID-loss backbone's (frozen
-    BatchNorm)."""
+    BatchNorm); without ``use_se`` it is pSp's plain IR unit."""
 
-    def __init__(self, in_channel, depth, stride, norm="in"):
+    def __init__(self, in_channel, depth, stride, norm="in", use_se=True):
         super().__init__()
 
         def mk_norm(channel):
@@ -106,7 +106,7 @@ class BottleneckIRSE(nn.Module):
             PReLU(depth),
             nn.Conv2d(depth, depth, 3, stride, 1, bias=False),
             mk_norm(depth),
-            SEModule(depth, 16),
+            *([SEModule(depth, 16)] if use_se else []),
         )
 
     def forward(self, x):

@@ -1,8 +1,9 @@
 """GPEN generator: a CNN encoder whose per-scale features are concatenated
 into a StyleGAN2 decoder as its "noise" (counterpart of
-``e4s_tpu/models/gpen/gpen_model.py``; the reference's FullGenerator with
-``isconcat``). The modulated convs are unmasked: ``ops/modconv.py``'s
-``modulated_conv2d``, shared with the StyleGAN2 generator's upper layers.
+``e4s_tpu/models/gpen/gpen_model.py``; the reference's FullGenerator and
+FullGenerator_SR with ``isconcat``). The modulated convs are unmasked:
+``ops/modconv.py``'s ``modulated_conv2d``, shared with the StyleGAN2
+generator's upper layers.
 """
 
 from __future__ import annotations
@@ -104,32 +105,35 @@ class GPENGenerator(nn.Module):
         return skip
 
 
-class GPENFullGenerator(nn.Module):
-    """Encoder ``ecd0..`` (1x1 conv, then stride-2 convs down to 4x4) ->
-    ``final_linear`` style -> ``generator``, the encoder's features as the
-    decoder's concatenated noise. forward(x [B,3,size,size] in [-1,1]) ->
-    [B,3,size,size]."""
+class GPENFullGeneratorSR(nn.Module):
+    """Encoder ``ecd0..`` at ``in_size`` (1x1 conv, then stride-2 convs down
+    to 4x4) -> ``final_linear`` style -> ``generator`` decoding to
+    ``out_size``, the encoder's features as the decoder's concatenated
+    noise; the decoder's scales above ``in_size`` get none (the reference's
+    FullGenerator_SR). forward(x [B,3,in_size,in_size] in [-1,1]) ->
+    [B,3,out_size,out_size]."""
 
-    def __init__(self, size=512, style_dim=512, n_mlp=8, channel_multiplier=2,
-                 narrow=1.0):
+    def __init__(self, in_size=512, out_size=1024, style_dim=512, n_mlp=8,
+                 channel_multiplier=2, narrow=1.0):
         super().__init__()
         channels = gpen_channels(channel_multiplier, narrow)
-        log_size = int(math.log2(size))
-        self.n_ecd = log_size - 1
-        self.ecd0 = nn.Sequential(ConvLayer(3, channels[size], 1))
-        in_channel = channels[size]
-        for i, s in enumerate(range(log_size, 2, -1)):
+        log_in = int(math.log2(in_size))
+        self.n_ecd = log_in - 1
+        self.n_top = int(math.log2(out_size)) - log_in
+        self.ecd0 = nn.Sequential(ConvLayer(3, channels[in_size], 1))
+        in_channel = channels[in_size]
+        for i, s in enumerate(range(log_in, 2, -1)):
             out_channel = channels[2 ** (s - 1)]
             setattr(self, f"ecd{i + 1}", nn.Sequential(
                 ConvLayer(in_channel, out_channel, 3, downsample=True)))
             in_channel = out_channel
         self.final_linear = nn.Sequential(EqualLinear(
             channels[4] * 4 * 4, style_dim, activation="fused_lrelu"))
-        self.generator = GPENGenerator(size, style_dim, n_mlp,
+        self.generator = GPENGenerator(out_size, style_dim, n_mlp,
                                        channel_multiplier, narrow)
 
     def forward(self, x):
-        noise = []
+        noise = [None] * self.n_top
         out = x
         for i in range(self.n_ecd):
             out = getattr(self, f"ecd{i}")(out)
@@ -138,3 +142,12 @@ class GPENFullGenerator(nn.Module):
         # each feature twice, reversed, the first dropped
         sched = [n for n in noise for _ in (0, 1)][::-1][1:]
         return self.generator(style, sched)
+
+
+class GPENFullGenerator(GPENFullGeneratorSR):
+    """GPEN at one size (the reference's FullGenerator). forward(x
+    [B,3,size,size] in [-1,1]) -> [B,3,size,size]."""
+
+    def __init__(self, size=512, style_dim=512, n_mlp=8, channel_multiplier=2,
+                 narrow=1.0):
+        super().__init__(size, size, style_dim, n_mlp, channel_multiplier, narrow)

@@ -74,6 +74,7 @@ class ParseNet(nn.Module):
         def clip(c):
             return max(min_ch, min(c, max_ch))
 
+        self.in_size = in_size
         mfs = min(in_size, min_feat_size)
         down_steps = int(np.log2(in_size // mfs))
         up_steps = int(np.log2(out_size // mfs))

@@ -1,9 +1,11 @@
-"""RetinaFace with a ResNet-50 trunk, its FPN and SSH heads, and the prior
-box decoding and NMS (counterpart of ``e4s_tpu/models/gpen/retinaface.py``;
-cfg_re50: 2 anchors on each of 3 scales)."""
+"""RetinaFace with a ResNet-50 trunk, its FPN and SSH heads, the prior box
+decoding and NMS, and ``RetinaFaceDetector``, the detector's host API
+(counterpart of ``e4s_tpu/models/gpen/retinaface.py``; cfg_re50: 2 anchors
+on each of 3 scales)."""
 
 from __future__ import annotations
 
+import functools
 import itertools
 import math
 
@@ -14,6 +16,8 @@ import torch.nn.functional as F
 
 from e4s_tpu_torch.models.encoders import FrozenBatchNorm
 from e4s_tpu_torch.ops.resize import nearest_resize
+
+RETINA_MEAN_BGR = (104.0, 117.0, 123.0)
 
 CFG_RE50 = {
     "min_sizes": [[16, 32], [64, 128], [256, 512]],
@@ -203,3 +207,70 @@ def py_cpu_nms(dets, thresh):
         ovr = (w * h) / (areas[i] + areas[order[1:]] - w * h)
         order = order[1:][ovr <= thresh]
     return keep
+
+
+# ---------------------------------------------------------------------------
+# Detection: the net and the decode on the device, NMS on the host
+# ---------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=None)
+def det_consts(size, device: torch.device):
+    """RetinaFace's prior boxes for an H x W image (43008 boxes at 1024^2:
+    tens of ms of Python each time), its BGR mean and the pixel scales of
+    the boxes and the landmarks, on the device once per size and device."""
+    h, w = size
+    return (torch.from_numpy(prior_boxes((h, w))).to(device),
+            torch.tensor(RETINA_MEAN_BGR, device=device).reshape(1, 3, 1, 1),
+            torch.tensor([w, h] * 2, dtype=torch.float32, device=device),
+            torch.tensor([w, h] * 5, dtype=torch.float32, device=device))
+
+
+def detect_on_device(net, x_bgr, act=torch.float32):
+    """RetinaFace on one BGR image ``x_bgr`` [1,3,H,W] (float, 0-255) less
+    the mean, computing in ``act`` -> every prior's (boxes [P,4] and
+    landmarks [P,10] in pixels, face scores [P]), float32 on the device."""
+    priors, mean, box_scale, lm_scale = det_consts(tuple(x_bgr.shape[-2:]), x_bgr.device)
+    loc, conf, ldm = (t.float()[0] for t in net((x_bgr - mean).to(act)))
+    return (decode_boxes(loc, priors) * box_scale,
+            decode_landms(ldm, priors) * lm_scale, conf[:, 1])
+
+
+def select_detections(boxes, lms, scores, confidence_threshold=0.9,
+                      nms_threshold=0.4, top_k=5000, keep_top_k=750):
+    """The candidates above the threshold are downloaded (only they), the
+    best ``top_k`` by score go through NMS and ``keep_top_k`` stay: (dets
+    [N,5] x1 y1 x2 y2 score, landmarks [N,10]) as numpy, in NMS order."""
+    keep = torch.nonzero(scores > confidence_threshold).flatten()
+    dets = torch.cat([boxes[keep], scores[keep, None]], dim=1).cpu().numpy()
+    lms = lms[keep].cpu().numpy()
+    order = dets[:, 4].argsort()[::-1][:top_k]
+    dets, lms = dets[order], lms[order]
+    kept = py_cpu_nms(dets, nms_threshold)
+    return dets[kept][:keep_top_k], lms[kept][:keep_top_k]
+
+
+class RetinaFaceDetector:
+    """``detect`` of the reference's RetinaFace wrapper at any image size:
+    the net, the mean subtraction and the prior decode run on the net's
+    device, NMS on the host. ``net``: a ``RetinaFace``; without one, seeded
+    random weights on ``device`` (the GPU unless the CPU is asked for)."""
+
+    def __init__(self, net=None, device="cuda", seed: int = 0):
+        if net is None:
+            from e4s_tpu_torch.pipelines.model_io import materialise, resolve_device
+
+            net = materialise(RetinaFace, None, seed, resolve_device(device))
+        self.net = net
+
+    @torch.no_grad()
+    def detect(self, img_bgr, confidence_threshold=0.9, nms_threshold=0.4,
+               top_k=5000, keep_top_k=750):
+        """img_bgr [H,W,3] BGR (uint8 or float, numpy) -> (dets [N,5],
+        landmarks [N,10]) in pixels, float32 numpy."""
+        p = next(self.net.parameters())
+        x = torch.from_numpy(np.ascontiguousarray(img_bgr)).to(p.device)
+        x = x.float().permute(2, 0, 1)[None]
+        boxes, lms, scores = detect_on_device(self.net, x, p.dtype)
+        return select_detections(boxes, lms, scores, confidence_threshold,
+                                 nms_threshold, top_k, keep_top_k)

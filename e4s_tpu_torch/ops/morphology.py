@@ -1,6 +1,7 @@
-"""Flat grayscale dilation / erosion and the stitch masks (counterpart of
-``e4s_tpu/ops/morphology.py``). Geodesic borders: the padding value never
-wins the reduction.
+"""Flat grayscale dilation / erosion, the operators built from them
+(opening, closing, gradient, top and bottom hat) and the stitch masks
+(counterpart of ``e4s_tpu/ops/morphology.py``). Geodesic borders: the
+padding value never wins the reduction.
 """
 
 from __future__ import annotations
@@ -30,6 +31,31 @@ def dilation(x, kernel):
 def erosion(x, kernel):
     """Min over the structuring element. x: [B,C,H,W]."""
     return -_flat_max(-x, kernel, -MAX_VAL)
+
+
+def opening(x, kernel):
+    """Erosion, then dilation."""
+    return dilation(erosion(x, kernel), kernel)
+
+
+def closing(x, kernel):
+    """Dilation, then erosion."""
+    return erosion(dilation(x, kernel), kernel)
+
+
+def gradient(x, kernel):
+    """Dilation less erosion."""
+    return dilation(x, kernel) - erosion(x, kernel)
+
+
+def top_hat(x, kernel):
+    """x less its opening."""
+    return x - opening(x, kernel)
+
+
+def bottom_hat(x, kernel):
+    """The closing less x."""
+    return closing(x, kernel) - x
 
 
 def create_masks(mask, outer_dilation: int = 0, operation: str = "dilation"):

@@ -1,6 +1,7 @@
-"""Resizes with PyTorch's ``F.interpolate`` conventions, and skimage's
+"""Resizes with PyTorch's ``F.interpolate`` conventions, skimage's
 anti-aliased resize (counterpart of ``e4s_tpu/ops/resize.py``, which
-reproduces these same conventions in JAX).
+reproduces these same conventions in JAX), and cv2's uint8 ``INTER_LINEAR``
+resize of GPEN's host glue.
 """
 
 from __future__ import annotations
@@ -46,6 +47,43 @@ def bilinear_resize(x, size, align_corners: bool = False):
         mode="bilinear", align_corners=align_corners,
     )
     return y.reshape(*lead, *size)
+
+
+@functools.lru_cache(maxsize=None)
+def _cv2_linear_taps(n_in: int, n_out: int, device: torch.device):
+    """cv2's ``INTER_LINEAR`` taps along one axis: the two source indices
+    (replicated at the borders, where cv2 keeps the fraction) and their
+    weights in 11-bit fixed point, computed in float32 as cv2 does."""
+    scale = 1.0 / (n_out / n_in)
+    f = np.float32((np.arange(n_out) + 0.5) * scale - 0.5)
+    i0 = np.floor(f)
+    f = (f - i0).astype(np.float32)
+    w = np.stack([np.rint((np.float32(1) - f) * 2048), np.rint(f * 2048)])
+    idx = np.stack([np.clip(i0, 0, n_in - 1), np.clip(i0 + 1, 0, n_in - 1)])
+    return (torch.from_numpy(idx.astype(np.int64)).to(device),
+            torch.from_numpy(w.astype(np.int32)).to(device))
+
+
+def resize_u8(x, size):
+    """``cv2.resize(img, (w, h))`` (``INTER_LINEAR``) of a uint8 tensor's
+    last two axes, bit for bit: an exact 2x reduction is cv2's
+    ``INTER_AREA`` there (the 2x2 sum, + 2, >> 2); every other ratio is
+    cv2's fixed-point bilinear (no antialiasing): the horizontal pass with
+    11-bit weights in int32, then the vertical one as its vector path does
+    it, ((D0 >> 4) * b0 >> 16) + ((D1 >> 4) * b1 >> 16), + 2, >> 2."""
+    H, W = x.shape[-2:]
+    h, w = size
+    if (H, W) == (h, w):
+        return x
+    xi = x.to(torch.int32)
+    if (H, W) == (2 * h, 2 * w):
+        s = xi[..., 0::2, 0::2] + xi[..., 0::2, 1::2] + xi[..., 1::2, 0::2] + xi[..., 1::2, 1::2]
+        return ((s + 2) >> 2).to(torch.uint8)
+    (ix, ax), (iy, by) = (_cv2_linear_taps(W, w, x.device), _cv2_linear_taps(H, h, x.device))
+    d = xi.index_select(-1, ix[0]) * ax[0] + xi.index_select(-1, ix[1]) * ax[1]
+    d0, d1 = (d.index_select(-2, iy[k]) >> 4 for k in (0, 1))
+    t = ((d0 * by[0, :, None]) >> 16) + ((d1 * by[1, :, None]) >> 16)
+    return ((t + 2) >> 2).clamp(0, 255).to(torch.uint8)
 
 
 def adaptive_avg_pool2d(x, size):

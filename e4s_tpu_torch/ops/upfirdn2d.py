@@ -61,3 +61,10 @@ def upsample2(x, kernel=(1, 3, 3, 1), factor: int = 2):
     pad1 = p // 2
     return upfirdn2d(x, k, up=factor, down=1, pad=(pad0, pad1))
 
+
+
+def downsample2(x, kernel=(1, 3, 3, 1), factor: int = 2):
+    """2x FIR-filtered downsample."""
+    k = make_kernel(kernel)
+    p = k.shape[0] - factor
+    return upfirdn2d(x, k, up=1, down=factor, pad=((p + 1) // 2, p // 2))

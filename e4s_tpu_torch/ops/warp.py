@@ -1,8 +1,9 @@
 """Grid sampling, affine warps and cv2's Gaussian blur (counterpart of
 ``e4s_tpu/ops/warp.py``).
 
-``grid_sample_3d`` is ``F.grid_sample`` (trilinear, zero padding; the
-grid's last axis is (x, y, z) in [-1, 1]). ``affine_warp`` is
+``grid_sample_2d`` and ``grid_sample_3d`` are ``F.grid_sample`` (bilinear
+or trilinear, zero padding; the grid's last axis is (x, y[, z]) in
+[-1, 1]). ``affine_warp`` is
 ``cv2.warpAffine`` bilinear with a zero border, given the destination-to-
 source matrix. ``gaussian_blur_cv2`` is ``cv2.GaussianBlur`` with cv2's taps
 and BORDER_REFLECT_101, as two matmuls with the border folded into the
@@ -16,6 +17,12 @@ import functools
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+
+def grid_sample_2d(input, grid, align_corners: bool = False):
+    """input [N,C,H,W]; grid [N,Ho,Wo,2] (x, y) -> [N,C,Ho,Wo]."""
+    return F.grid_sample(input, grid.to(input.dtype), mode="bilinear",
+                         padding_mode="zeros", align_corners=align_corners)
 
 
 def grid_sample_3d(input, grid, align_corners: bool = False):

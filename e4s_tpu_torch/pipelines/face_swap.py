@@ -305,3 +305,16 @@ class FaceSwapper:
         stitched = stitch_foreground(faces, target_t, self._labels(swapped_msk),
                                      self._labels(hole_map))
         return np.clip((stitched.cpu().numpy() + 1) / 2, 0, 1)
+
+
+def faceSwapping_pipeline(source, target, opts, save_dir, target_mask=None,
+                          need_crop=False, verbose=False, only_target_crop=False,
+                          reenactor=None, restorer=None, device="cuda"):
+    """The reference's functional entry (``scripts/face_swap.py``):
+    ``FaceSwapper(opts, device, reenactor=, restorer=).swap(...)``; the
+    re-enactor and the restorer are the port's ``FaceVid2Vid`` and
+    ``FaceEnhancement``, given together or not at all."""
+    swapper = FaceSwapper(opts, device=device, reenactor=reenactor, restorer=restorer)
+    return swapper.swap(source, target, save_dir=save_dir, target_mask=target_mask,
+                        need_crop=need_crop, verbose=verbose,
+                        only_target_crop=only_target_crop)

@@ -1,12 +1,14 @@
 """Image conversions, label-map colouring, loss averaging and the training
-log's face grids, on the host (counterpart of ``e4s_tpu/utils/img_utils.py``).
-matplotlib is imported only by ``vis_faces``."""
+log's face grids (counterpart of ``e4s_tpu/utils/img_utils.py``); only
+``im2tensor`` and ``label_map_to_onehot`` make tensors, the rest work on the
+host. matplotlib is imported only by ``vis_faces``."""
 
 from __future__ import annotations
 
 from typing import Dict, List, Sequence
 
 import numpy as np
+import torch
 
 
 def tensor2im(var: np.ndarray):
@@ -16,6 +18,19 @@ def tensor2im(var: np.ndarray):
     arr = np.transpose(np.asarray(var), (1, 2, 0))
     arr = np.clip((arr + 1) / 2, 0, 1) * 255
     return Image.fromarray(arr.astype("uint8"))
+
+
+def im2tensor(img) -> torch.Tensor:
+    """PIL RGB (or an [H,W,3] uint8 array) -> [3,H,W] float32 in [-1,1]."""
+    arr = torch.from_numpy(np.asarray(img, np.float32) / 255.0)
+    return arr.permute(2, 0, 1) * 2 - 1
+
+
+def label_map_to_onehot(label: torch.Tensor, num_cls: int = 12) -> torch.Tensor:
+    """[B,1,H,W] integer labels -> [B,num_cls,H,W] float32 one-hot, on the
+    labels' device."""
+    classes = torch.arange(num_cls, device=label.device).reshape(1, num_cls, 1, 1)
+    return (label == classes).float()
 
 
 def get_colors() -> List[List[int]]:

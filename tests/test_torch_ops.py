@@ -18,7 +18,9 @@ from e4s_tpu.ops import modconv as jmc
 from e4s_tpu.ops import morphology as jmorph
 from e4s_tpu.ops import resize as jresize
 from e4s_tpu.ops.masked_pool import masked_region_mean as j_region_mean
+from e4s_tpu.ops import warp as jwarp
 from e4s_tpu.ops.upfirdn2d import blur as j_blur
+from e4s_tpu.ops.upfirdn2d import downsample2 as j_downsample2
 from e4s_tpu.ops.upfirdn2d import make_kernel as j_make_kernel
 from e4s_tpu.ops.upfirdn2d import upfirdn2d as j_upfirdn2d
 from e4s_tpu.ops.upfirdn2d import upsample2 as j_upsample2
@@ -30,7 +32,9 @@ from e4s_tpu_torch.ops import morphology as tmorph
 from e4s_tpu_torch.ops import patch_modconv as tpmc
 from e4s_tpu_torch.ops import resize as tresize
 from e4s_tpu_torch.ops import upfirdn2d as tfir
+from e4s_tpu_torch.ops import warp as twarp
 from e4s_tpu_torch.ops.masked_pool import masked_region_mean as t_region_mean
+from e4s_tpu_torch.utils import img_utils as timg
 
 TOL = 1e-4
 
@@ -403,6 +407,47 @@ def test_create_masks_matches_jax(op):
     got = tmorph.create_masks(_t(m), outer_dilation=2, operation=op)
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+@pytest.mark.parametrize("op", ["opening", "closing", "gradient", "top_hat", "bottom_hat"])
+def test_morphology_operators_match_jax(op):
+    """Exact on {0,1} masks with a flat 5x5 and a 3x7 element."""
+    m = (np.random.RandomState(12).rand(2, 1, 24, 20) > 0.55).astype(np.float32)
+    for k in (np.ones((5, 5), np.float32), np.ones((3, 7), np.float32)):
+        want = np.asarray(getattr(jmorph, op)(jnp.asarray(m), k))
+        np.testing.assert_array_equal(getattr(tmorph, op)(_t(m), k).numpy(), want)
+
+
+@pytest.mark.parametrize("align_corners", [False, True])
+def test_grid_sample_2d_matches_jax(align_corners):
+    """Bilinear, zero padding, the grid reaching past the borders."""
+    rng = np.random.RandomState(13)
+    img = rng.randn(2, 3, 9, 12).astype(np.float32)
+    grid = rng.uniform(-1.2, 1.2, (2, 7, 5, 2)).astype(np.float32)
+    want = np.asarray(jwarp.grid_sample_2d(jnp.asarray(img), jnp.asarray(grid), align_corners))
+    got = twarp.grid_sample_2d(_t(img), _t(grid), align_corners)
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-6)
+
+
+def test_downsample2_matches_jax():
+    x = np.random.RandomState(14).randn(2, 3, 16, 12).astype(np.float32)
+    got = tfir.downsample2(_t(x))
+    assert got.shape == (2, 3, 8, 6)
+    np.testing.assert_allclose(got.numpy(), np.asarray(j_downsample2(jnp.asarray(x))), atol=1e-6)
+
+
+def test_im2tensor_and_label_map_to_onehot_match_jax():
+    from PIL import Image
+
+    from e4s_tpu.utils import img_utils as jimg
+
+    rng = np.random.RandomState(15)
+    img = Image.fromarray(rng.randint(0, 256, (6, 5, 3)).astype(np.uint8))
+    np.testing.assert_allclose(timg.im2tensor(img).numpy(), jimg.im2tensor(img), atol=1e-6)
+    lab = rng.randint(0, 12, (2, 1, 6, 5))
+    got = timg.label_map_to_onehot(_t(lab), 12)
+    assert got.dtype == torch.float32 and got.shape == (2, 12, 6, 5)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(jimg.label_map_to_onehot(lab, 12)))
 
 
 # ---------------------------------------------------------------- the package
