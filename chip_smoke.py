@@ -94,7 +94,16 @@ Phases, in order; the first that fails ends the run with a non-zero exit:
      CPU: ``process`` unaligned, aligned and with in_size < out_size,
      ``detect``, ``drive_source``, the four pSp encoders and the demo's
      ``generate`` at 256^2; uint8 PSNR for images and max relative error
-     for tensors, each against its bar; then the wall time of 20-22.
+     for tensors, each against its bar; then the wall time of 20-22;
+ 23. the texture encoder's conv3x3 kernel (``csrc/conv3_tf32.cu``) at each
+     of the encoder's stride-1 3x3 shapes at B = 2 (one swap's two faces)
+     and B = 16 (a ``swap_batch`` chunk of 8): against its plain version
+     within 1e-4 of max |plain|, its CUDA-event time (cold L2) beside its
+     3xTF32 bound, the plain version and cuDNN's ``F.conv2d`` on NCHW
+     tensors (the ``library ms`` yardstick), and their sums over the 44
+     convs of a pass; then a 1024^2 swap and a ``swap_batch`` chunk of 8
+     make 44 conv3x3 launches each in f32 and none with ``bf16``, 13
+     masked-conv launches each.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
 line before it is the per-kernel JSON summary. TF32 is off throughout.
@@ -320,6 +329,114 @@ def phase_kernel_times(B=1, dtype=torch.float32):
             f"{bounds}  [F.conv2d {dt} one phase's shape, other function: "
             f"{conv:.4f} ms]")
     return rows
+
+
+# The stride-1 3x3 convs of FSEncoderPSP's trunk on its 256^2 input, which
+# take the conv3x3 kernel in f32: (label, H=W, Ci, Co, convs per pass)
+ENCODER_CONVS = [
+    ("256^2 64->128", 256, 64, 128, 1),
+    ("128^2 128->128", 128, 128, 128, 4),
+    ("128^2 128->256", 128, 128, 256, 1),
+    ("64^2 256->256", 64, 256, 256, 6),
+    ("64^2 256->512", 64, 256, 512, 1),
+    ("32^2 512->512", 32, 512, 512, 27),
+    ("16^2 512->512", 16, 512, 512, 4),
+]
+CONV3_LAUNCHES_PER_PASS = sum(n for *_, n in ENCODER_CONVS)  # 44
+
+
+def conv3_bounds(B, H, Ci, Co):
+    """(FLOPs, bytes, 3xTF32 bound ms, what bounds it) of one stride-1 3x3
+    conv at batch B: three TF32 products per multiply-add; x, the weight
+    and the output once."""
+    flops = 2.0 * B * H * H * Ci * Co * 9
+    nbytes = 4.0 * (B * H * H * (Ci + Co) + 9 * Ci * Co)
+    t_ops = 3 * flops / PEAK_TF32_FLOPS * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    return flops, nbytes, max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def phase_conv3x3(B):
+    """The conv3x3 kernel at every stride-1 3x3 shape of the encoder at
+    batch B: against its plain version (``F.conv2d`` on the NHWC view, TF32
+    off) within 1e-4 of max |plain|, then CUDA-event times with a cold L2
+    against its 3xTF32 bound, the plain version and cuDNN's ``F.conv2d``
+    on NCHW tensors (the ``library ms`` yardstick: what the encoder ran
+    before). Weights packed before the timed window, as the model keeps
+    them. Returns the sums over the 44 convs of a pass (kernel, plain,
+    library and bound ms) and the largest max |diff|."""
+    from e4s_tpu_torch.ops import conv3x3 as c3
+    from e4s_tpu_torch.ops.patch_modconv import pack_weight
+
+    flush = torch.empty(256 * 1024 * 1024, dtype=torch.float32, device="cuda")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rows, worst = [], 0.0
+    for i, (label, H, Ci, Co, n) in enumerate(ENCODER_CONVS):
+        g = torch.Generator(device="cuda").manual_seed(100 + i)
+        x = torch.randn((B, H, H, Ci), generator=g, device="cuda")
+        w = torch.randn((Co, Ci, 3, 3), generator=g, device="cuda") / math.sqrt(9 * Ci)
+        packed = pack_weight(w)
+        got = c3.conv3x3_nhwc(x, w, packed)
+        want = c3.conv3x3_nhwc_plain(x, w)
+        err = (got - want).abs().max().item()
+        scale = want.abs().max().item()
+        if not (err <= 1e-4 * scale and torch.isfinite(got).all().item()):
+            raise SystemExit(f"FAIL conv3x3: B={B} {label} max|diff| {err:.3e} "
+                             f"> 1e-4 of {scale:.3e}")
+        worst = max(worst, err)
+        ms = _time_cuda(lambda: c3.conv3x3_nhwc(x, w, packed), flush=flush)
+        plain_ms = _time_cuda(lambda: c3.conv3x3_nhwc_plain(x, w), flush=flush)
+        xc = x.permute(0, 3, 1, 2).contiguous()
+        lib_ms = _time_cuda(lambda: torch.nn.functional.conv2d(xc, w, padding=1),
+                            flush=flush)
+        flops, nbytes, bound, by = conv3_bounds(B, H, Ci, Co)
+        th, tw, splits = c3.plan(B, H, H, Ci, Co, sms)
+        rows.append(dict(stage=label, n=n, ms=ms, plain_ms=plain_ms, lib_ms=lib_ms,
+                         bound_ms=bound, flops=flops, bytes=nbytes))
+        log(f"[conv3] f32 B={B} {label:15s} x{n:2d} tile {th}x{tw} splits {splits:2d}  "
+            f"kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  F.conv2d NCHW {lib_ms:.4f} ms  "
+            f"3xTF32 bound {bound:.4f} ms ({by}, share {bound / ms:.3f})  "
+            f"max|diff| {err:.3e} of max|plain| {scale:.3e}")
+        del x, w, packed, got, want, xc
+    total = {k: sum(r[k] * r["n"] for r in rows)
+             for k in ("ms", "plain_ms", "lib_ms", "bound_ms")}
+    log(f"[conv3] f32 B={B} the encoder's {CONV3_LAUNCHES_PER_PASS} stride-1 convs: "
+        f"kernel {total['ms']:.3f} ms, plain {total['plain_ms']:.3f} ms, F.conv2d "
+        f"NCHW {total['lib_ms']:.3f} ms, 3xTF32 bound {total['bound_ms']:.3f} ms "
+        f"(share {total['bound_ms'] / total['ms']:.3f})")
+    del flush
+    torch.cuda.empty_cache()
+    return total, worst
+
+
+def phase_conv3x3_launches():
+    """A 1024^2 FaceSwapper in f32 and with ``bf16``: one swap and one
+    ``swap_batch`` chunk of 8 each. f32: 44 conv3x3 launches a swap and a
+    chunk; bf16: none (cuDNN's bf16 convs); 13 masked-conv launches each."""
+    from e4s_tpu_torch.ops.conv3x3 import conv3x3_nhwc
+    from e4s_tpu_torch.ops.patch_modconv import patch_mod_conv3_nhwc
+    from e4s_tpu_torch.pipelines.face_swap import FaceSwapper
+
+    src, tgt = _batch_pairs()
+    for bf16 in (False, True):
+        swapper = FaceSwapper(_opts(1024, 18, bf16=bf16), device="cuda", seed=0)
+        want = 0 if bf16 else CONV3_LAUNCHES_PER_PASS
+        for label, call in (
+                ("swap", lambda: swapper.swap(os.path.join(EXAMPLE, "source.jpg"),
+                                              os.path.join(EXAMPLE, "target.jpg"))),
+                ("swap_batch chunk 8", lambda: swapper.swap_batch(src, tgt, chunk=8))):
+            conv3x3_nhwc.launches = patch_mod_conv3_nhwc.launches = 0
+            call()
+            torch.cuda.synchronize()
+            got = (conv3x3_nhwc.launches, patch_mod_conv3_nhwc.launches)
+            log(f"[conv3] {'bf16' if bf16 else 'f32'} {label}: conv3x3 launches "
+                f"{got[0]}, patch_mod_conv3 launches {got[1]}")
+            if got != (want, PMC_LAUNCHES_PER_SWAP):
+                raise SystemExit(f"FAIL conv3: {label} launches {got}, want "
+                                 f"({want}, {PMC_LAUNCHES_PER_SWAP})")
+        del swapper
+        torch.cuda.empty_cache()
+    return CONV3_LAUNCHES_PER_PASS
 
 
 def _opts(out_size, n_styles, **kw):
@@ -1642,6 +1759,9 @@ def main():
     phase_entry_points()
     phase_small_vs_cpu()
     log(f"[time] phases 20-22: {time.perf_counter() - t0:.1f} s wall")
+    phase_conv3x3(2)
+    conv3, worst3 = phase_conv3x3(16)
+    launches3 = phase_conv3x3_launches()
     row = dict(route="cuda", replaces="e4s_tpu/ops/pallas/modconv_tpu.py:39",
                library_ms=None)
     summary = {"kernels": [{
@@ -1662,6 +1782,16 @@ def main():
         "plain_ms": per_swap16("plain_ms"),
         "bound_ms": per_swap16("bound_ms"),
         "bound_by": "operations" if t_ops16 >= t_bytes16 else "bytes",
+    }, {
+        "name": "conv3x3_tf32", "route": "cuda", "replaces": None,
+        "source": "e4s_tpu_torch/csrc/conv3_tf32.cu",
+        "launches": launches3,
+        "max_abs_err": worst3,
+        "ms": conv3["ms"],
+        "plain_ms": conv3["plain_ms"],
+        "library_ms": conv3["lib_ms"],
+        "bound_ms": conv3["bound_ms"],
+        "bound_by": "operations",
     }]}
     log(json.dumps(summary))
     print(json.dumps({"ok": True, "device": {

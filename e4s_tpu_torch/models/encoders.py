@@ -3,6 +3,11 @@ their IR-SE blocks (counterpart of ``e4s_tpu/models/encoders.py``). Module
 trees follow the reference's ``nn.Sequential`` indices, so the state_dict
 keys are the reference's (``body.{i}.res_layer.{0..5}``, ``output_layer.4``
 ...) and ``model_ir_se50.pth`` loads with ``load_state_dict``.
+
+On the card in float32 the units' stride-1 3x3 convs run the hand-written
+kernel of ``ops/conv3x3.py`` (``Conv3x3``), and FSEncoderPSP runs its trunk
+channels-last, so that each such conv reads and writes NHWC memory with no
+copy; its public tensors stay NCHW.
 """
 
 from __future__ import annotations
@@ -11,20 +16,51 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from e4s_tpu_torch.ops.conv3x3 import conv3x3_nhwc, kernel_takes
 from e4s_tpu_torch.ops.masked_pool import masked_region_mean
+from e4s_tpu_torch.ops.patch_modconv import kernel_weights, pack_weight
 
 PReLU = nn.PReLU
 
 
 class InstanceNorm(nn.Module):
-    """``nn.InstanceNorm2d`` defaults: affine=False, eps=1e-5, no state."""
+    """``nn.InstanceNorm2d`` defaults: affine=False, eps=1e-5, no state. A
+    channels-last input keeps its layout (``F.instance_norm`` would copy it
+    to NCHW and back): the same mean and biased variance over (H, W)."""
 
     def __init__(self, eps: float = 1e-5):
         super().__init__()
         self.eps = eps
 
     def forward(self, x):
+        if x.dim() == 4 and not x.is_contiguous() and x.is_contiguous(
+                memory_format=torch.channels_last):
+            var, mean = torch.var_mean(x, dim=(2, 3), correction=0, keepdim=True)
+            rstd = torch.rsqrt(var + self.eps)
+            return torch.addcmul(-mean * rstd, x, rstd)  # one pass over x
         return F.instance_norm(x, eps=self.eps)
+
+
+class Conv3x3(nn.Conv2d):
+    """``nn.Conv2d(in, out, 3, stride, 1, bias=False)``, the same parameter
+    and state_dict key, that sends what ``ops/conv3x3.py::kernel_takes``
+    accepts (a CUDA float32 input, stride 1, Ci a multiple of 4) to the
+    hand-written kernel and the rest to ``F.conv2d``. The kernel reads x as
+    an NHWC view (free where x is channels-last) and returns a channels-last
+    tensor. Its packed weight is kept by ``patch_modconv.kernel_weights``."""
+
+    def __init__(self, in_channels, out_channels, stride=1):
+        super().__init__(in_channels, out_channels, 3, stride, 1, bias=False)
+        self._kernel_weights = None  # pack_weight(weight), built once
+        self._kernel_weights_key = None
+
+    def forward(self, x):
+        if not kernel_takes(x.device, x.dtype, self.stride, self.in_channels):
+            return super().forward(x)
+        packed = kernel_weights(self, self.weight,
+                                lambda: pack_weight(self.weight.detach()))
+        out = conv3x3_nhwc(x.permute(0, 2, 3, 1).contiguous(), self.weight, packed)
+        return out.permute(0, 3, 1, 2)
 
 
 class FrozenBatchNorm(nn.Module):
@@ -102,9 +138,9 @@ class BottleneckIRSE(nn.Module):
             )
         self.res_layer = nn.Sequential(
             mk_norm(in_channel),
-            nn.Conv2d(in_channel, depth, 3, 1, 1, bias=False),
+            Conv3x3(in_channel, depth),
             PReLU(depth),
-            nn.Conv2d(depth, depth, 3, stride, 1, bias=False),
+            Conv3x3(depth, depth, stride),
             mk_norm(depth),
             *([SEModule(depth, 16)] if use_se else []),
         )
@@ -142,6 +178,9 @@ class FSEncoderPSP(nn.Module):
         ])
 
     def forward(self, x, segmap):
+        if x.is_cuda and x.dtype == torch.float32:
+            # the trunk channels-last: the convs' NHWC views are free
+            x = x.contiguous(memory_format=torch.channels_last)
         x = self.input_layer(x)
         taps = []
         for i, block in enumerate(self.body):
@@ -151,7 +190,7 @@ class FSEncoderPSP(nn.Module):
         codes = torch.cat(
             [masked_region_mean(t, segmap) for t in taps], dim=-1
         )
-        return codes, torch.zeros_like(x)
+        return codes, torch.zeros_like(x, memory_format=torch.contiguous_format)
 
 
 def irse50_blocks():

@@ -36,6 +36,7 @@ from e4s_tpu_torch.ops.modconv import (
     masked_torgb,
     modulated_conv2d,
 )
+from e4s_tpu_torch.ops.patch_modconv import kernel_weights
 from e4s_tpu_torch.ops.upfirdn2d import make_kernel, upsample2
 
 
@@ -95,24 +96,10 @@ class ModulatedConv2d(nn.Module):
 
     def _masked_weights(self, w_scaled):
         """The masked conv kernel's weights (the 3x3 or up-phase weights and
-        their packed layout), built once and rebuilt when the weight changes
-        in place (``load_state_dict``, an optimizer step) or moves. Where
-        the weight takes a gradient they are built per call instead, so the
-        gradient flows through them, and so they are where the weight is not
-        the module's own parameter (``torch.func.functional_call`` with,
-        say, a bf16 cast of it: a temporary whose storage a later one may
-        reuse)."""
-        if not isinstance(self.weight, nn.Parameter) or (
-                torch.is_grad_enabled() and self.weight.requires_grad):
-            return masked_conv_weights(w_scaled, self.upsample, self.blur_kernel)
-        key = (self.weight._version, self.weight.data_ptr(), self.weight.device,
-               self.weight.dtype)
-        if self._kernel_weights_key != key:
-            with torch.no_grad():
-                self._kernel_weights = masked_conv_weights(
-                    w_scaled, self.upsample, self.blur_kernel)
-            self._kernel_weights_key = key
-        return self._kernel_weights
+        their packed layout), kept as ``patch_modconv.kernel_weights`` keeps
+        a kernel's layout of a weight."""
+        return kernel_weights(self, self.weight, lambda: masked_conv_weights(
+            w_scaled, self.upsample, self.blur_kernel))
 
     def forward(self, x, style, mask=None):
         """style: [B, style_dim], or [B, R, style_dim] with the one-hot

@@ -54,9 +54,12 @@ import torch
 import torch.nn.functional as F
 
 _PKG = Path(__file__).resolve().parent.parent
-# the source of each instantiation, each built into its own library
+# each source, built into its own library: the masked conv's two
+# instantiations (keyed by dtype) and the plain 3x3 conv of the encoder
+# trunks (``ops/conv3x3.py``)
 SOURCES = {torch.float32: _PKG / "csrc" / "patch_mod_conv3.cu",
-           torch.bfloat16: _PKG / "csrc" / "patch_mod_conv3_bf16.cu"}
+           torch.bfloat16: _PKG / "csrc" / "patch_mod_conv3_bf16.cu",
+           "conv3x3": _PKG / "csrc" / "conv3_tf32.cu"}
 BUILD_DIR = _PKG / "build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -67,9 +70,16 @@ TILE_N = 128  # output channels of a block
 # chunk (two k16 slices)
 TILE_K = {torch.float32: 8, torch.bfloat16: 32}
 MAX_CLUSTER = 8  # blocks of a portable thread-block cluster
-# the C entry of each instantiation
+# the C entry of each library, and its argument types
 _ENTRY = {torch.float32: "patch_mod_conv3_f32",
-          torch.bfloat16: "patch_mod_conv3_bf16"}
+          torch.bfloat16: "patch_mod_conv3_bf16",
+          "conv3x3": "conv3x3_tf32"}
+_ptr, _i32 = ctypes.c_void_p, ctypes.c_int
+_ARGTYPES = {
+    "patch_mod_conv3_f32": [_ptr] * 6 + [_i32] * 9 + [_ptr],
+    "patch_mod_conv3_bf16": [_ptr] * 5 + [_i32] * 9 + [_ptr],
+    "conv3x3_tf32": [_ptr] * 4 + [_i32] * 8 + [_ptr],
+}
 
 _libs = None
 _lib_lock = threading.Lock()
@@ -170,6 +180,26 @@ def pack_weight(w):
     return torch.stack([hi, _round_tf32(t - hi)], dim=3)
 
 
+def kernel_weights(owner, weight, build):
+    """``build()``, a kernel's layout of the parameter ``weight`` (packed
+    tiles, polyphase weights), kept on ``owner`` (``_kernel_weights``) and
+    built again when the weight changes in place (``load_state_dict``, an
+    optimizer step) or moves. Where the weight takes a gradient it is built
+    per call instead, so the gradient flows through it, and so it is where
+    the weight is not the module's own parameter
+    (``torch.func.functional_call`` with, say, a bf16 cast of it: a
+    temporary whose storage a later one may reuse)."""
+    if not isinstance(weight, torch.nn.Parameter) or (
+            torch.is_grad_enabled() and weight.requires_grad):
+        return build()
+    key = (weight._version, weight.data_ptr(), weight.device, weight.dtype)
+    if owner._kernel_weights_key != key:
+        with torch.no_grad():
+            owner._kernel_weights = build()
+        owner._kernel_weights_key = key
+    return owner._kernel_weights
+
+
 def plan(B, H, W, Ci, Co, phases, sms=132):
     """(tile rows, tile columns, K splits) for one launch of the f32
     kernel. 16x16-pixel tiles from 64^2 up (each weight tile feeds 256
@@ -231,14 +261,14 @@ def _nvcc() -> str:
     return found
 
 
-def library_path(dtype=torch.float32) -> Path:
-    """Build output of ``dtype``'s source, named by a digest of every
-    source and the flags, so an edited source never loads a stale
-    library."""
+def library_path(key=torch.float32) -> Path:
+    """Build output of the source of ``key`` (a key of ``SOURCES``), named
+    by a digest of every source and the flags, so an edited source never
+    loads a stale library."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src in SOURCES.values():
         h.update(src.read_bytes())
-    return BUILD_DIR / f"lib{SOURCES[dtype].stem}_{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"lib{SOURCES[key].stem}_{h.hexdigest()[:16]}.so"
 
 
 def build() -> tuple[list[Path], str]:
@@ -248,27 +278,27 @@ def build() -> tuple[list[Path], str]:
     serialisation); each report is kept beside its library."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     jobs = {}
-    for dt, src in SOURCES.items():
-        out = library_path(dt)
+    for key, src in SOURCES.items():
+        out = library_path(key)
         if out.exists() and out.with_suffix(".log").exists():
             continue
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
-        jobs[dt] = (cmd, tmp, subprocess.Popen(
+        jobs[key] = (cmd, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     failed = []
-    for dt, (cmd, tmp, proc) in jobs.items():
+    for key, (cmd, tmp, proc) in jobs.items():
         report = proc.communicate()[0]
         if proc.returncode != 0:
             failed.append(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
                           f"{report}")
             continue
-        out = library_path(dt)
+        out = library_path(key)
         out.with_suffix(".log").write_text(report)
         os.replace(tmp, out)
     if failed:
         raise RuntimeError("\n".join(failed))
-    paths = [library_path(dt) for dt in SOURCES]
+    paths = [library_path(key) for key in SOURCES]
     return paths, "".join(p.with_suffix(".log").read_text() for p in paths)
 
 
@@ -277,15 +307,10 @@ def _load():
     with _lib_lock:
         if _libs is None:
             build()
-            libs = {dt: ctypes.CDLL(str(library_path(dt))) for dt in SOURCES}
-            ptr, i32 = ctypes.c_void_p, ctypes.c_int
-            argtypes = {
-                torch.float32: [ptr] * 6 + [i32] * 9 + [ptr],
-                torch.bfloat16: [ptr] * 5 + [i32] * 9 + [ptr],
-            }
-            for dt, name in _ENTRY.items():
-                fn = getattr(libs[dt], name)
-                fn.argtypes = argtypes[dt]
+            libs = {k: ctypes.CDLL(str(library_path(k))) for k in SOURCES}
+            for k, name in _ENTRY.items():
+                fn = getattr(libs[k], name)
+                fn.argtypes = _ARGTYPES[name]
                 fn.restype = ctypes.c_int
             _libs = libs
     return _libs

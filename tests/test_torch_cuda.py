@@ -21,6 +21,7 @@ import pytest
 import torch
 
 from e4s_tpu_torch.models.stylegan2 import ModulatedConv2d
+from e4s_tpu_torch.ops import conv3x3 as c3
 from e4s_tpu_torch.ops import patch_modconv as pmc
 from e4s_tpu_torch.pipelines.face_swap import FaceSwapper
 
@@ -596,3 +597,148 @@ def test_reenact_restore_branches_on_the_card_match_the_cpu(card, branch):
     want = {"two faces": 2, "face under 100 px": 1, "no face": 0}[branch]
     assert out["cuda"][1] == out["cpu"][1] == want
     assert _psnr(out["cuda"][0], out["cpu"][0]) >= CHAIN_PSNR_D
+
+
+# ------------------------------------------------- the encoder's 3x3 conv
+
+# (H=W, Ci, Co) of every stride-1 3x3 conv of FSEncoderPSP's trunk at 256^2
+ENCODER_SHAPES = [(256, 64, 128), (128, 128, 128), (128, 128, 256), (64, 256, 256),
+                  (64, 256, 512), (32, 512, 512), (16, 512, 512)]
+
+
+def _conv3_inputs(B, H, W, Ci, Co, dev, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed + H * 1000 + Ci + Co)
+    x = torch.randn((B, H, W, Ci), generator=g, device=dev)
+    w = torch.randn((Co, Ci, 3, 3), generator=g, device=dev) / math.sqrt(9 * Ci)
+    return x, w
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [2, 16])
+@pytest.mark.parametrize("H,Ci,Co", ENCODER_SHAPES)
+def test_conv3x3_kernel_matches_conv2d_at_the_encoder_shapes(card, B, H, Ci, Co):
+    """The kernel at its plan against ``F.conv2d`` with TF32 off (the plain
+    version), one launch each."""
+    x, w = _conv3_inputs(B, H, H, Ci, Co, card)
+    before = c3.conv3x3_nhwc.launches
+    got = c3.conv3x3_nhwc(x, w)
+    assert c3.conv3x3_nhwc.launches == before + 1
+    assert got.shape == (B, H, H, Co) and got.is_contiguous()
+    _check(got, c3.conv3x3_nhwc_plain(x, w))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("th,tw", c3.TILES)
+@pytest.mark.parametrize("B,H,W,Ci,Co,splits", [
+    (2, 5, 7, 24, 40, 1), (1, 9, 130, 16, 8, 1), (1, 3, 5, 200, 136, 4),
+    (1, 70, 60, 20, 136, 2), (3, 17, 33, 12, 45, 1), (2, 19, 21, 40, 200, 3)])
+def test_conv3x3_kernel_ragged_edges(card, monkeypatch, th, tw, B, H, W, Ci, Co, splits):
+    """Every tile, forced past the plan, on H and W that overhang it, Co not
+    a multiple of 128 (odd: single stores), Ci not a multiple of 8 (a half
+    K step), split K with an empty or a short last split; bit for bit across
+    two calls."""
+    monkeypatch.setattr(c3, "plan", lambda *a: (th, tw, splits))
+    x, w = _conv3_inputs(B, H, W, Ci, Co, card)
+    a = c3.conv3x3_nhwc(x, w)
+    b = c3.conv3x3_nhwc(x, w)
+    _check(a, c3.conv3x3_nhwc_plain(x, w))
+    assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,Ci,Co", [(2, 16, 512, 512), (2, 32, 512, 512),
+                                       (2, 64, 256, 256), (16, 16, 512, 512),
+                                       (16, 64, 256, 256)])
+def test_conv3x3_kernel_repeats_bitwise_at_the_plan(card, B, H, Ci, Co):
+    """The plan's own launches (split K at B = 2 and at 16^2, none at 64^2
+    and B = 16): two launches agree bit for bit."""
+    x, w = _conv3_inputs(B, H, H, Ci, Co, card)
+    packed = pmc.pack_weight(w)
+    a = c3.conv3x3_nhwc(x, w, packed)
+    b = c3.conv3x3_nhwc(x, w, packed)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_conv3x3_kernel_rejects_bad_inputs(card):
+    x, w = _conv3_inputs(2, 8, 8, 16, 32, card)
+    before = c3.conv3x3_nhwc.launches
+    with pytest.raises(ValueError):
+        c3.conv3x3_nhwc(x.transpose(1, 2), w)
+    with pytest.raises(TypeError):
+        c3.conv3x3_nhwc(x.double(), w.double())
+    with pytest.raises(TypeError):
+        c3.conv3x3_nhwc(x.bfloat16(), w)
+    with pytest.raises(ValueError):
+        c3.conv3x3_nhwc(x[..., :6].contiguous(), w[:, :6].contiguous())
+    with pytest.raises(ValueError):
+        c3.conv3x3_nhwc(x, w[:, :8].contiguous())
+    with pytest.raises(ValueError):
+        c3.conv3x3_nhwc(x, w.cpu())
+    with pytest.raises(ValueError):
+        c3.conv3x3_nhwc(x, w, pmc.pack_weight(w[:, :8].contiguous()))
+    assert c3.conv3x3_nhwc.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,Ci,Co", [(2, 16, 512, 512), (2, 64, 256, 256),
+                                       (3, 9, 12, 45)])
+def test_conv3x3_gradients_match_conv2d(card, B, H, Ci, Co):
+    """The gradients through the Function (kernel forward, plain backward)
+    w.r.t. x and the weight, against autograd through ``F.conv2d``."""
+    x, w = (t.requires_grad_(True) for t in _conv3_inputs(B, H, H, Ci, Co, card))
+    r = torch.randn((B, H, H, Co), generator=torch.Generator(device=card).manual_seed(9),
+                    device=card)
+    c3.conv3x3_nhwc.launches = 0
+    got = torch.autograd.grad((c3.conv3x3_nhwc(x, w) * r).sum(), (x, w))
+    assert c3.conv3x3_nhwc.launches == 1
+    want = torch.autograd.grad(
+        (torch.nn.functional.conv2d(x.permute(0, 3, 1, 2), w, padding=1)
+         .permute(0, 2, 3, 1) * r).sum(), (x, w))
+    for g, v in zip(got, want):
+        _check(g, v)
+
+
+@pytest.mark.cuda
+def test_encoder_on_the_card_matches_the_cpu_and_stays_nchw(card):
+    """FSEncoderPSP at 256^2, batch 2 (the full trunk, seeded weights): 44
+    kernel launches, codes within 1e-4 of max |CPU codes|, NCHW outputs."""
+    from e4s_tpu_torch.models.encoders import FSEncoderPSP
+    from e4s_tpu_torch.models.layers import init_module_
+
+    enc = init_module_(FSEncoderPSP(), torch.Generator().manual_seed(11)).eval()
+    g = torch.Generator().manual_seed(12)
+    x = torch.randn((2, 3, 256, 256), generator=g)
+    seg = torch.nn.functional.one_hot(torch.randint(0, 12, (2, 256, 256), generator=g), 12)
+    seg = seg.permute(0, 3, 1, 2).float()
+    with torch.no_grad():
+        want, _ = enc(x, seg)
+        enc.to(card)
+        c3.conv3x3_nhwc.launches = 0
+        got, feats = enc(x.to(card), seg.to(card))
+    assert c3.conv3x3_nhwc.launches == 44
+    assert feats.is_contiguous() and got.is_contiguous()
+    _check(got.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_swap_and_swap_batch_launch_44_conv3x3_in_f32_and_none_in_bf16(card):
+    """A 1024^2 swapper (18 styles, K = 13, seeded weights): 44 conv3x3
+    launches per swap and per ``swap_batch`` chunk in f32 and none with
+    ``bf16``, 13 masked-conv launches each."""
+    opts = dict(num_seg_cls=12, out_size=1024, remaining_layer_idx=13, n_styles=18,
+                start_from_latent_avg=True)
+    rng = np.random.RandomState(6)
+    pairs = [np.kron(rng.randint(0, 256, (2, 3, 16, 16)), np.ones((64, 64))).astype(np.uint8)
+             for _ in range(2)]
+    for bf16, want in ((False, 44), (True, 0)):
+        swapper = FaceSwapper(types.SimpleNamespace(**opts, bf16=bf16), device="cuda", seed=0)
+        c3.conv3x3_nhwc.launches = pmc.patch_mod_conv3_nhwc.launches = 0
+        swapper.swap_from_arrays(pairs[0][:1] / 255.0, pairs[1][:1] / 255.0)
+        assert (c3.conv3x3_nhwc.launches, pmc.patch_mod_conv3_nhwc.launches) == (want, 13)
+        c3.conv3x3_nhwc.launches = pmc.patch_mod_conv3_nhwc.launches = 0
+        swapper.swap_batch(pairs[0], pairs[1], chunk=2)
+        assert (c3.conv3x3_nhwc.launches, pmc.patch_mod_conv3_nhwc.launches) == (want, 13)
+        del swapper
+        torch.cuda.empty_cache()
