@@ -67,7 +67,8 @@ Phases, in order; the first that fails ends the run with a non-zero exit:
      events (pose, fv2v generator, SR, detect with the candidates
      downloaded, restore) and the fused swap's, the request on the host
      clock, peak memory and the 13 masked-conv launches per request (bf16
-     ones under ``bf16``); in f32 also the staged target-mask request and
+     ones under ``bf16``), 44 conv3x3 and 349 conv3x3_n32 launches in f32
+     and none in bf16; in f32 also the staged target-mask request and
      ``swap_batch`` of 2 pairs (uint8 and float) behind the chain; then
      the bf16 chain's D against the f32 one's;
  18. the chain and the swap at their small sizes (fv2v at 64^2 with narrow
@@ -103,7 +104,18 @@ Phases, in order; the first that fails ends the run with a non-zero exit:
      tensors (the ``library ms`` yardstick), and their sums over the 44
      convs of a pass; then a 1024^2 swap and a ``swap_batch`` chunk of 8
      make 44 conv3x3 launches each in f32 and none with ``bf16``, 13
-     masked-conv launches each.
+     masked-conv launches each;
+ 24. RealESRNet's 32-channel conv kernel (``csrc/conv3_n32_f32.cu``) at
+     each shape of a x4 SR forward on a 256^2 input (the trunk's 32-160 ->
+     32 channels with their epilogues, the up path at 512^2 and 1024^2):
+     against its plain version (cuDNN), bit for bit, its CUDA-event time
+     (cold L2) beside its f32 bound, the plain version and cuDNN's
+     ``F.conv2d`` alone (``library ms``); then RealESRNet x4 (23 blocks,
+     seeded weights) at B = 1 on 256^2 and 512^2 inputs: the trunk's 346
+     convs as one table call, the whole SR forward on the kernel and on its
+     modules (cuDNN), each cold and bit for bit the same, the SR forward's
+     host enqueue beside its device time, 349 launches a forward (none in
+     bf16), and the profiler's op list of both forwards.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
 line before it is the per-kernel JSON summary. TF32 is off throughout.
@@ -437,6 +449,211 @@ def phase_conv3x3_launches():
         del swapper
         torch.cuda.empty_cache()
     return CONV3_LAUNCHES_PER_PASS
+
+
+# RealESRNet x4's 32-channel convs on a 256^2 input (phase 24): (label, output
+# H=W, Ci, up, epilogue, convs per SR forward). The trunk's conv1-4 end in a
+# LeakyReLU and its conv5 in one residual (rdb1, rdb2) or two (rdb3);
+# conv_body adds the features; the up path ends in LeakyReLUs.
+SR_CONVS = [
+    ("256^2 32->32", 256, 32, False, "lrelu", 69),
+    ("256^2 64->32", 256, 64, False, "lrelu", 69),
+    ("256^2 96->32", 256, 96, False, "lrelu", 69),
+    ("256^2 128->32", 256, 128, False, "lrelu", 69),
+    ("256^2 160->32", 256, 160, False, "r1 r2", 69),
+    ("256^2 32->32 body", 256, 32, False, "r1", 1),
+    ("512^2 32->32 up1", 512, 32, True, "lrelu", 1),
+    ("1024^2 32->32 up2", 1024, 32, True, "lrelu", 1),
+    ("1024^2 32->32 hr", 1024, 32, False, "lrelu", 1),
+]
+N32_TRUNK = 346  # 69 dense blocks x 5 convs + conv_body
+N32_LAUNCHES_PER_SR = sum(n for *_, n in SR_CONVS)  # 349
+
+
+def n32_bound(H, Ci, up, B=1):
+    """(FLOPs, bytes, f32 bound ms, what bounds it) of one 32-channel conv
+    with an H x H output: one f32 FMA per multiply-add (the kernel keeps
+    cuDNN's f32 sums, off the tensor cores); x (at H/2 for up), the weight,
+    the output and the residuals read once."""
+    flops = 2.0 * B * H * H * Ci * 32 * 9
+    xin = B * (H // 2 if up else H) ** 2 * Ci
+    nbytes = 4.0 * (xin + 9 * Ci * 32 + 3 * B * H * H * 32)
+    t_ops = flops / PEAK_F32_FLOPS * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    return flops, nbytes, max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def phase_n32_convs():
+    """The 32-channel conv kernel at every shape of a x4 SR forward on a
+    256^2 input, B = 1: against its plain version (cuDNN, TF32 off) bit for
+    bit, then CUDA-event times with a cold L2 against its f32 bound, the
+    plain version and cuDNN's ``F.conv2d`` on NCHW tensors alone (what the
+    SR ran before, without its concatenations and elementwise passes).
+    Weights packed before the timed window. Returns the sums over the 346
+    trunk convs and over the 349 of a forward, and the largest max |diff|."""
+    from e4s_tpu_torch.ops import conv3x3_n32 as n32
+
+    flush = torch.empty(256 * 1024 * 1024, dtype=torch.float32, device="cuda")
+    rows, worst = [], 0.0
+    for i, (label, H, Ci, up, epi, n) in enumerate(SR_CONVS):
+        g = torch.Generator(device="cuda").manual_seed(200 + i)
+        h = H // 2 if up else H
+        C = 160 if Ci < 160 and not up else Ci  # a dense block's buffer
+        x = torch.randn((1, h, h, C), generator=g, device="cuda")
+        w = torch.randn((32, Ci, 3, 3), generator=g, device="cuda") / math.sqrt(9 * Ci)
+        b = torch.randn((32,), generator=g, device="cuda") * 0.1
+        r = torch.randn((1, H, H, 32), generator=g, device="cuda")
+        out = torch.zeros((1, H, H, 160 if C == 160 and Ci < 160 else 32), device="cuda")
+        oc = Ci if out.shape[3] == 160 else 0
+        kw = dict(up=up, lrelu=epi == "lrelu", r1=2 if "r1" in epi else None, a1=0.2,
+                  r2=3 if "r2" in epi else None, a2=0.2)
+        bufs = [x, out, r, r.clone()]
+        step = n32.Step(0, Ci, 1, oc, **kw)
+        packed = n32.pack([step], [w], [b])
+        n32.run([step], bufs, None, None, packed)
+        plain = lambda: n32.conv_plain(  # noqa: E731
+            x[..., :Ci], w, b, up, kw["lrelu"], r if kw["r1"] else None, 0.2,
+            bufs[3] if kw["r2"] else None, 0.2)
+        want = plain()
+        got = out[..., oc:oc + 32]
+        err = (got - want).abs().max().item()
+        scale = want.abs().max().item()
+        if not (torch.equal(got, want) and torch.isfinite(got).all().item()):
+            raise SystemExit(f"FAIL n32: {label} not cuDNN's bit for bit: max|diff| "
+                             f"{err:.3e} of {scale:.3e}")
+        worst = max(worst, err)
+        ms = _time_cuda(lambda: n32.run([step], bufs, None, None, packed), flush=flush)
+        plain_ms = _time_cuda(plain, flush=flush)
+        xc = (x[..., :Ci].repeat_interleave(2, 1).repeat_interleave(2, 2) if up
+              else x[..., :Ci]).permute(0, 3, 1, 2).contiguous()
+        lib_ms = _time_cuda(lambda: torch.nn.functional.conv2d(xc, w, b, padding=1),
+                            flush=flush)
+        flops, nbytes, bound, by = n32_bound(H, Ci, up)
+        rows.append(dict(stage=label, n=n, ms=ms, plain_ms=plain_ms, lib_ms=lib_ms,
+                         bound_ms=bound))
+        log(f"[n32] f32 B=1 {label:18s} x{n:2d} ({epi})  kernel {ms:.4f} ms  plain "
+            f"{plain_ms:.4f} ms  F.conv2d NCHW {lib_ms:.4f} ms  f32 bound "
+            f"{bound:.4f} ms ({by}, share {bound / ms:.3f})  bit for bit (max|diff| "
+            f"{err:.1e})")
+        del x, w, r, out, bufs, packed, want, got, xc
+    totals = {}
+    for name, part in (("trunk", rows[:6]), ("forward", rows)):
+        totals[name] = {k: sum(r[k] * r["n"] for r in part)
+                        for k in ("ms", "plain_ms", "lib_ms", "bound_ms")}
+        t = totals[name]
+        log(f"[n32] f32 B=1 sums over the {sum(r['n'] for r in part)} convs of the "
+            f"{name}: kernel {t['ms']:.3f} ms, plain {t['plain_ms']:.3f} ms, F.conv2d "
+            f"NCHW {t['lib_ms']:.3f} ms, f32 bound {t['bound_ms']:.3f} ms (share "
+            f"{t['bound_ms'] / t['ms']:.3f})")
+    del flush
+    torch.cuda.empty_cache()
+    return totals, worst
+
+
+def _top_ops(fn):
+    """One call under ``torch.profiler``: the device ms and count of every
+    kernel, largest first, as (name, ms, count)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ops = [(e.key, e.device_time_total / 1e3, e.count) for e in prof.key_averages()
+           if e.device_time_total > 0]
+    return sorted(ops, key=lambda o: -o[1])
+
+
+def phase_sr_forward():
+    """RealESRNet x4 (23 blocks, seeded weights) at B = 1 on 256^2 and
+    512^2 inputs: CUDA-event ms (cold L2, 5 calls) of the trunk's 346 convs
+    as one table call and of the whole forward on the kernel and on its
+    modules (cuDNN, TF32 off); the forward's host enqueue (from an idle
+    card to its return) beside its device time; 349 launches a forward and
+    none in bf16; each forward's op list."""
+    from e4s_tpu_torch.models.gpen.rrdbnet import RRDBNet
+    from e4s_tpu_torch.ops import conv3x3_n32 as n32
+    from e4s_tpu_torch.pipelines.model_io import materialise
+
+    net = materialise(lambda: RRDBNet(scale=4), None, 7, "cuda")
+    flush = torch.empty(256 * 1024 * 1024, dtype=torch.float32, device="cuda")
+    out = {}
+    with torch.no_grad():
+        for H in (256, 512):
+            x = torch.rand((1, 3, H, H), generator=torch.Generator(device="cuda")
+                           .manual_seed(H), device="cuda")
+            n32.conv3x3_n32.launches = 0
+            y = net(x)
+            torch.cuda.synchronize()
+            if n32.conv3x3_n32.launches != N32_LAUNCHES_PER_SR:
+                raise SystemExit(f"FAIL n32: {n32.conv3x3_n32.launches} launches a "
+                                 f"forward, want {N32_LAUNCHES_PER_SR}")
+            convs, steps, packed = net._table(x.device)
+            f = torch.zeros((1, H, H, 32), device="cuda")
+            bufs = [f, *(torch.zeros((1, H, H, 160), device="cuda") for _ in range(3)),
+                    *(torch.zeros((1, s * H, s * H, 32), device="cuda") for s in (2, 4, 4))]
+            trunk = packed._replace(steps=packed.steps[:N32_TRUNK],
+                                    alphas=packed.alphas[:N32_TRUNK])
+            trunk_ms = _time_cuda(lambda: n32.run(steps[:N32_TRUNK], bufs, None, None, trunk),
+                                  iters=5, flush=flush)
+            fwd_ms = _time_cuda(lambda: net(x), iters=5, flush=flush)
+            enq = []
+            for _ in range(5):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                net(x)
+                enq.append((time.perf_counter() - t0) * 1e3)
+            torch.cuda.synchronize()
+            ops = _top_ops(lambda: net(x))
+            real = n32.kernel_takes
+            n32.kernel_takes = lambda *a: False
+            try:
+                n32.conv3x3_n32.launches = 0
+                want = net(x)
+                mod_ms = _time_cuda(lambda: net(x), iters=5, flush=flush)
+                mod_ops = _top_ops(lambda: net(x))
+                if n32.conv3x3_n32.launches:
+                    raise SystemExit("FAIL n32: the module path launched the kernel")
+            finally:
+                n32.kernel_takes = real
+            err = (y - want).abs().max().item()
+            scale = want.abs().max().item()
+            flops = sum(n32_bound(H, s.ci, False)[0] for s in steps[:N32_TRUNK])
+            bound = flops / PEAK_F32_FLOPS * 1e3
+            log(f"[n32] RealESRNet x4 {H}^2 -> {4 * H}^2, B=1: trunk's {N32_TRUNK} convs "
+                f"{trunk_ms:.3f} ms (f32 bound {bound:.3f} ms, share "
+                f"{bound / trunk_ms:.3f}); forward on the kernel {fwd_ms:.3f} ms, on its "
+                f"modules (cuDNN) {mod_ms:.3f} ms; host enqueue of a forward "
+                f"{min(enq):.3f}-{max(enq):.3f} ms ({max(enq) / fwd_ms:.3f} of its "
+                f"device time); the modules' result bit for bit: {torch.equal(y, want)}")
+            if not torch.equal(y, want):
+                raise SystemExit(f"FAIL n32: the forward is not its modules' bit for bit: "
+                                 f"max|diff| {err:.3e} of {scale:.3e}")
+            for tag, rows in (("kernel", ops), ("modules", mod_ops)):
+                log(f"[n32] {H}^2 op list, forward on the {tag}: " + "; ".join(
+                    f"{name[:90]} {ms:.3f} ms x{cnt}" for name, ms, cnt in rows[:12]))
+            # left beside the kernel: conv_first and conv_last (cuDNN, each
+            # with its bias add) and the layout copies
+            convs = sum(c for name, _, c in ops if "conv3_n32" not in name
+                        and ("gemm" in name or "conv" in name.lower()))
+            banned = [o for o in ops if "CatArrayBatchedCopy" in o[0]
+                      or "leaky" in o[0].lower() or "Mul" in o[0]]
+            if banned or convs > 2:
+                raise SystemExit(f"FAIL n32: the kernel forward still runs {convs} "
+                                 f"cuDNN convs and {banned}")
+            out[H] = dict(trunk_ms=trunk_ms, bound_ms=bound, fwd_ms=fwd_ms, mod_ms=mod_ms,
+                          enqueue_ms=max(enq))
+            del x, y, want, bufs, f
+            torch.cuda.empty_cache()
+        n32.conv3x3_n32.launches = 0
+        net16 = net.to(torch.bfloat16)
+        net16(torch.rand((1, 3, 64, 64), device="cuda", dtype=torch.bfloat16))
+        torch.cuda.synchronize()
+        log(f"[n32] bf16 forward: {n32.conv3x3_n32.launches} launches (want 0)")
+        if n32.conv3x3_n32.launches:
+            raise SystemExit("FAIL n32: a bf16 forward launched the f32 kernel")
+    del net, net16, flush
+    torch.cuda.empty_cache()
+    return out
 
 
 def _opts(out_size, n_styles, **kw):
@@ -1287,6 +1504,8 @@ def phase_reenact_swaps():
     """The re-enacted 1024^2 swap at full width in f32 and bf16: per-stage
     CUDA-event times, host ms, peak memory, 13 launches per request; then
     the bf16 chain's D against the f32 chain's."""
+    from e4s_tpu_torch.ops.conv3x3 import conv3x3_nhwc
+    from e4s_tpu_torch.ops.conv3x3_n32 import conv3x3_n32
     from e4s_tpu_torch.pipelines.face_swap import FaceSwapper
 
     t0 = time.perf_counter()
@@ -1308,11 +1527,13 @@ def phase_reenact_swaps():
             events.clear()
             torch.cuda.synchronize()
             _reset_launches()
+            conv3x3_nhwc.launches = conv3x3_n32.launches = 0
             t0 = time.perf_counter()
             arr = np.asarray(swapper.swap(src, tgt))
             torch.cuda.synchronize()
             host = (time.perf_counter() - t0) * 1e3
             total, n16 = _launch_counts()
+            others = (conv3x3_nhwc.launches, conv3x3_n32.launches)
             stages = {k: sum(a.elapsed_time(b) for a, b in v) for k, v in events.items()}
             # the request's host time outside every timed stage: the image
             # loads, the uploads, the download and the host between stages
@@ -1320,7 +1541,8 @@ def phase_reenact_swaps():
             log(f"[reenact] {tag} request {r}{' (warm-up)' if r == 0 else ''}: "
                 f"{host:.1f} ms host, gap {gap:.1f}; " + ", ".join(
                     f"{k} {stages[k]:.2f}" for k in [c[0] for c in CHAIN_STAGES] + ["swap"])
-                + f" ms (CUDA events); patch_mod_conv3 launches {total} (bf16 {n16}); "
+                + f" ms (CUDA events); patch_mod_conv3 launches {total} (bf16 {n16}), "
+                f"conv3x3 {others[0]}, conv3x3_n32 {others[1]}; "
                 f"faces {len(swapper.chain.last_faces)}; mean pixel {arr.mean():.2f}")
             if arr.shape != (1024, 1024, 3) or arr.dtype != np.uint8:
                 raise SystemExit(f"FAIL reenact: result {arr.shape} {arr.dtype}")
@@ -1329,6 +1551,10 @@ def phase_reenact_swaps():
             if total != PMC_LAUNCHES_PER_SWAP or n16 != (total if bf16 else 0):
                 raise SystemExit(f"FAIL reenact: {total} launches ({n16} bf16), want "
                                  f"{PMC_LAUNCHES_PER_SWAP}{' bf16' if bf16 else ''}")
+            want = (0, 0) if bf16 else (CONV3_LAUNCHES_PER_PASS, N32_LAUNCHES_PER_SR)
+            if others != want:
+                raise SystemExit(f"FAIL reenact: conv3x3 / conv3x3_n32 launches {others}, "
+                                 f"want {want}")
         log(f"[reenact] {tag} peak device memory "
             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
         if not bf16:
@@ -1762,6 +1988,8 @@ def main():
     phase_conv3x3(2)
     conv3, worst3 = phase_conv3x3(16)
     launches3 = phase_conv3x3_launches()
+    n32_sums, worst_n32 = phase_n32_convs()
+    phase_sr_forward()
     row = dict(route="cuda", replaces="e4s_tpu/ops/pallas/modconv_tpu.py:39",
                library_ms=None)
     summary = {"kernels": [{
@@ -1791,6 +2019,16 @@ def main():
         "plain_ms": conv3["plain_ms"],
         "library_ms": conv3["lib_ms"],
         "bound_ms": conv3["bound_ms"],
+        "bound_by": "operations",
+    }, {
+        "name": "conv3_n32_f32", "route": "cuda", "replaces": None,
+        "source": "e4s_tpu_torch/csrc/conv3_n32_f32.cu",
+        "launches": N32_LAUNCHES_PER_SR,
+        "max_abs_err": worst_n32,
+        "ms": n32_sums["forward"]["ms"],
+        "plain_ms": n32_sums["forward"]["plain_ms"],
+        "library_ms": n32_sums["forward"]["lib_ms"],
+        "bound_ms": n32_sums["forward"]["bound_ms"],
         "bound_by": "operations",
     }]}
     log(json.dumps(summary))

@@ -55,11 +55,13 @@ import torch.nn.functional as F
 
 _PKG = Path(__file__).resolve().parent.parent
 # each source, built into its own library: the masked conv's two
-# instantiations (keyed by dtype) and the plain 3x3 conv of the encoder
-# trunks (``ops/conv3x3.py``)
+# instantiations (keyed by dtype), the plain 3x3 conv of the encoder trunks
+# (``ops/conv3x3.py``) and RealESRNet's 32-channel 3x3 conv
+# (``ops/conv3x3_n32.py``)
 SOURCES = {torch.float32: _PKG / "csrc" / "patch_mod_conv3.cu",
            torch.bfloat16: _PKG / "csrc" / "patch_mod_conv3_bf16.cu",
-           "conv3x3": _PKG / "csrc" / "conv3_tf32.cu"}
+           "conv3x3": _PKG / "csrc" / "conv3_tf32.cu",
+           "conv3x3_n32": _PKG / "csrc" / "conv3_n32_f32.cu"}
 BUILD_DIR = _PKG / "build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -73,12 +75,14 @@ MAX_CLUSTER = 8  # blocks of a portable thread-block cluster
 # the C entry of each library, and its argument types
 _ENTRY = {torch.float32: "patch_mod_conv3_f32",
           torch.bfloat16: "patch_mod_conv3_bf16",
-          "conv3x3": "conv3x3_tf32"}
+          "conv3x3": "conv3x3_tf32",
+          "conv3x3_n32": "conv3_n32_run"}
 _ptr, _i32 = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {
     "patch_mod_conv3_f32": [_ptr] * 6 + [_i32] * 9 + [_ptr],
     "patch_mod_conv3_bf16": [_ptr] * 5 + [_i32] * 9 + [_ptr],
     "conv3x3_tf32": [_ptr] * 4 + [_i32] * 8 + [_ptr],
+    "conv3_n32_run": [_ptr, _ptr, _i32, _ptr, _ptr, _i32, _i32] + [_ptr] * 5,
 }
 
 _libs = None

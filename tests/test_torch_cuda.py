@@ -22,6 +22,7 @@ import torch
 
 from e4s_tpu_torch.models.stylegan2 import ModulatedConv2d
 from e4s_tpu_torch.ops import conv3x3 as c3
+from e4s_tpu_torch.ops import conv3x3_n32 as n32
 from e4s_tpu_torch.ops import patch_modconv as pmc
 from e4s_tpu_torch.pipelines.face_swap import FaceSwapper
 
@@ -742,3 +743,171 @@ def test_swap_and_swap_batch_launch_44_conv3x3_in_f32_and_none_in_bf16(card):
         assert (c3.conv3x3_nhwc.launches, pmc.patch_mod_conv3_nhwc.launches) == (want, 13)
         del swapper
         torch.cuda.empty_cache()
+
+
+# ------------------------------------------ RealESRNet's 32-channel conv
+
+# (H=W, Ci, up) of every conv of RealESRNet x4 at its 256^2 input (the
+# trunk, conv_body, conv_up1, conv_up2, conv_hr), and the trunk's 32 -> 32
+# at 512^2 (GPEN's aligned SR) and 1024^2
+N32_SHAPES = [(256, 32, False), (256, 64, False), (256, 96, False), (256, 128, False),
+              (256, 160, False), (512, 32, True), (1024, 32, True), (1024, 32, False),
+              (512, 32, False)]
+# (B, H, W, Ci): tiles (16 x 16) that overhang H and W, Ci not a multiple of
+# 8 (a half stage), batch > 1
+N32_RAGGED = [(2, 5, 7, 12), (1, 33, 17, 36), (1, 70, 45, 100), (3, 31, 50, 4),
+              (1, 64, 64, 160)]
+
+
+def _n32_inputs(B, H, W, Ci, dev, C=None, seed=0):
+    """x [B,H,W,C] (C >= Ci channels), w [32,Ci,3,3], b [32]."""
+    g = torch.Generator(device=dev).manual_seed(seed + H * 1000 + W + Ci)
+    x = torch.randn((B, H, W, C or Ci), generator=g, device=dev)
+    w = torch.randn((32, Ci, 3, 3), generator=g, device=dev) / math.sqrt(9 * Ci)
+    b = torch.randn((32,), generator=g, device=dev) * 0.1
+    return x, w, b
+
+
+def _n32_plain(x, w, b, ci, **kw):
+    return n32.conv_plain(x[..., :ci], w, b, **kw)
+
+
+def _equal(got, want):
+    """Bit for bit: the kernel runs cuDNN's chain of FMAs (with TF32 off) in
+    cuDNN's order, and rounds its epilogue as PyTorch's passes do."""
+    torch.cuda.synchronize()
+    assert got.shape == want.shape
+    assert torch.equal(got, want), (got - want).abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,Ci,up", N32_SHAPES)
+def test_conv3x3_n32_kernel_is_conv2d_bit_for_bit_at_realesrnet_shapes(card, H, Ci, up):
+    """One launch against ``F.conv2d`` with TF32 off at every shape of the
+    SR (``up``: the input is the half-size map, upsampled in the load)."""
+    s = 2 if up else 1
+    x, w, b = _n32_inputs(1, H // s, H // s, Ci, card)
+    before = n32.conv3x3_n32.launches
+    got = n32.conv3x3_n32(x, w, b, up=up)
+    assert n32.conv3x3_n32.launches == before + 1
+    assert got.shape == (1, H, H, 32)
+    _equal(got, _n32_plain(x, w, b, Ci, up=up))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("up", [False, True])
+@pytest.mark.parametrize("B,H,W,Ci", N32_RAGGED)
+def test_conv3x3_n32_kernel_ragged_edges(card, B, H, W, Ci, up):
+    """H and W that overhang the tile, a half stage, batch > 1 (where cuDNN
+    may sum in another order: within 1e-4 of max |plain|); bit for bit
+    across two calls."""
+    x, w, b = _n32_inputs(B, H, W, Ci, card)
+    a = n32.conv3x3_n32(x, w, b, up=up, lrelu=True)
+    c = n32.conv3x3_n32(x, w, b, up=up, lrelu=True)
+    _check(a, _n32_plain(x, w, b, Ci, up=up, lrelu=True))
+    assert torch.equal(a, c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("epilogue", ["bias", "lrelu", "r1", "r1 r2", "out is r2"])
+def test_conv3x3_n32_prefix_read_offset_write_and_epilogues(card, epilogue):
+    """Channels [0, 96) of a 160-channel buffer in, channels [96, 128) of
+    the same buffer out (a dense block's conv3), or channels [0, 32) of
+    another buffer with one or two residuals (conv5; the third block's conv5
+    writes over its second residual); every other channel untouched."""
+    x, w, b = _n32_inputs(1, 40, 56, 96, card, C=160)
+    r1 = torch.randn((1, 40, 56, 160), generator=torch.Generator(device=card).manual_seed(1),
+                     device=card)
+    r2 = torch.randn((1, 40, 56, 64), generator=torch.Generator(device=card).manual_seed(2),
+                     device=card)
+    kw = {"bias": {}, "lrelu": dict(lrelu=True), "r1": dict(r1=r1, a1=0.2),
+          "r1 r2": dict(r1=r1, a1=0.2, r2=r2, a2=0.2),
+          "out is r2": dict(r1=r1, a1=0.2, r2=r2, a2=0.2)}[epilogue]
+    want = _n32_plain(x, w, b, 96, **{k: v[..., :32] if torch.is_tensor(v) else v
+                                      for k, v in kw.items()})
+    if epilogue in ("bias", "lrelu"):
+        out, oc = x, 96
+    else:
+        out = r2 if epilogue == "out is r2" else torch.randn_like(r2)
+        oc = 0
+    keep = out.clone()
+    got = n32.conv3x3_n32(x, w, b, ci=96, out=out, oc=oc, **kw)
+    assert got is out
+    _check(out[..., oc:oc + 32], want)
+    assert torch.equal(out[..., :oc], keep[..., :oc])
+    assert torch.equal(out[..., oc + 32:], keep[..., oc + 32:])
+
+
+@pytest.mark.cuda
+def test_conv3x3_n32_kernel_rejects_bad_inputs(card):
+    x, w, b = _n32_inputs(1, 16, 16, 64, card, C=96)
+    before = n32.conv3x3_n32.launches
+    with pytest.raises(TypeError):
+        n32.conv3x3_n32(x.double(), w.double(), b.double())
+    with pytest.raises(ValueError):
+        n32.conv3x3_n32(x.transpose(1, 2), w, b, ci=64)
+    with pytest.raises(ValueError):
+        n32.conv3x3_n32(x, w.cpu(), b, ci=64)
+    with pytest.raises(ValueError):  # not 32 output channels
+        n32.conv3x3_n32(x, w[:16].contiguous(), b[:16], ci=64)
+    with pytest.raises(RuntimeError):  # reads past x's channels
+        n32.conv3x3_n32(x[..., :48].contiguous(), w, b, ci=64)
+    with pytest.raises(RuntimeError):  # Ci not a multiple of 4
+        n32.conv3x3_n32(x, w[:, :6].contiguous(), b, ci=6)
+    with pytest.raises(RuntimeError):  # writes past out's channels
+        n32.conv3x3_n32(x, w, b, ci=64, out=torch.empty_like(x), oc=80)
+    with pytest.raises(RuntimeError):  # writes over the channels it reads
+        n32.conv3x3_n32(x, w, b, ci=64, out=x, oc=32)
+    with pytest.raises(RuntimeError):  # out is not 2x x for up
+        n32.conv3x3_n32(x, w, b, ci=64, up=True, out=torch.empty_like(x), oc=0)
+    assert n32.conv3x3_n32.launches == before
+
+
+def _sr_net(dev, seed=7):
+    from e4s_tpu_torch.models.gpen.rrdbnet import RRDBNet
+    from e4s_tpu_torch.pipelines.model_io import materialise
+
+    return materialise(lambda: RRDBNet(scale=4), None, seed, dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H", [256, 512])
+def test_realesrnet_on_the_kernel_is_its_modules_bit_for_bit(card, monkeypatch, H):
+    """RealESRNet x4 (23 blocks, seeded weights) on the kernel path against
+    its modules as written (cuDNN, TF32 off): the same float image and the
+    same uint8 SR image, bit for bit, in 349 launches a forward."""
+    from e4s_tpu_torch.pipelines.reenact_restore import sr_u8
+
+    net = _sr_net(card)
+    img = torch.randint(0, 256, (1, 3, H, H), generator=torch.Generator(device=card)
+                        .manual_seed(H), device=card, dtype=torch.uint8)
+    with torch.no_grad():
+        n32.conv3x3_n32.launches = 0
+        got = net(img.float() / 255.0)
+        got_u8 = sr_u8(net, img)
+        assert n32.conv3x3_n32.launches == 2 * 349
+        monkeypatch.setattr(n32, "kernel_takes", lambda *a: False)
+        want = net(img.float() / 255.0)
+        want_u8 = sr_u8(net, img)
+    assert n32.conv3x3_n32.launches == 2 * 349
+    _equal(got, want)
+    _equal(got_u8, want_u8)
+
+
+@pytest.mark.cuda
+def test_sr_launches_349_n32_convs_in_f32_and_none_in_bf16(card):
+    """The chain's SR stage: 349 launches of the 32-channel conv per forward
+    in f32; the ``bf16`` chain's deep copy runs its bf16 modules (none)."""
+    from e4s_tpu_torch.pipelines.reenact_restore import DeviceRestore, sr_u8
+
+    enh = types.SimpleNamespace(srmodel=_sr_net(card), facedetector=torch.nn.Identity(),
+                                facegan=torch.nn.Identity(), faceparser=torch.nn.Identity())
+    img = torch.randint(0, 256, (1, 3, 64, 48), device=card, dtype=torch.uint8)
+    for bf16, want in ((False, 349), (True, 0)):
+        restore = DeviceRestore(enh, bf16=bf16)
+        n32.conv3x3_n32.launches = 0
+        with torch.no_grad():
+            out = sr_u8(restore.sr, img, restore.act)
+        torch.cuda.synchronize()
+        assert out.shape == (1, 3, 256, 192)
+        assert n32.conv3x3_n32.launches == want
