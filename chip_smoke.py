@@ -188,11 +188,11 @@ def phase_card():
 
 
 def phase_build():
-    from e4s_tpu_torch.ops import patch_modconv as pmc
+    from e4s_tpu_torch.ops import kernel_lib
 
     t0 = time.perf_counter()
-    paths, report = pmc.build()
-    log(f"[build] {', '.join(p.name for p in paths)} in "
+    paths, report = kernel_lib.build()
+    log(f"[build] {len(paths)} libraries, {', '.join(p.name for p in paths)} in "
         f"{time.perf_counter() - t0:.1f} s (one nvcc per source, together)")
     for line in report.strip().splitlines():
         log(f"[build] {line}")
@@ -1162,11 +1162,13 @@ class _StepMeter:
     """Wraps a Coach's G, D and R1 steps: each ends in a synchronise and
     records its host ms, the kernel launches inside it (all, bf16) and its
     losses; and, inside a G step, the ms (CUDA events) of building the
-    masked conv's kernel weights per call and of the kernel's plain
-    backward (``_PatchModConv3.backward``)."""
+    masked conv's kernel weights per call and of the masked conv's plain
+    backward (``kernel_lib.PlainGrad.backward`` with the masked conv's
+    plain versions; the encoder's conv takes it too, untimed)."""
 
     def __init__(self, coach):
         from e4s_tpu_torch.models import stylegan2
+        from e4s_tpu_torch.ops import kernel_lib
         from e4s_tpu_torch.ops import patch_modconv as pmc
 
         self.rows = {"g": [], "d": [], "r1": []}
@@ -1185,11 +1187,17 @@ class _StepMeter:
                 return out
             return run
 
-        build, bwd = stylegan2.masked_conv_weights, pmc._PatchModConv3.backward
+        build, bwd = stylegan2.masked_conv_weights, kernel_lib.PlainGrad.backward
+        masked = (pmc.patch_mod_conv3_nhwc_plain, pmc.patch_mod_conv3_up_nhwc_plain)
+        timed_bwd = evented(bwd, "backward")
+
+        def backward(ctx, g):
+            return (timed_bwd if ctx.plain in masked else bwd)(ctx, g)
+
         stylegan2.masked_conv_weights = evented(build, "build")
-        pmc._PatchModConv3.backward = staticmethod(evented(bwd, "backward"))
+        kernel_lib.PlainGrad.backward = staticmethod(backward)
         self._undo = [(stylegan2, "masked_conv_weights", build),
-                      (pmc._PatchModConv3, "backward", staticmethod(bwd))]
+                      (kernel_lib.PlainGrad, "backward", staticmethod(bwd))]
 
     def close(self):
         for obj, name, fn in self._undo:

@@ -18,7 +18,8 @@ import torch.nn.functional as F
 
 from e4s_tpu_torch.ops.conv3x3 import conv3x3_nhwc, kernel_takes
 from e4s_tpu_torch.ops.masked_pool import masked_region_mean
-from e4s_tpu_torch.ops.patch_modconv import kernel_weights, pack_weight
+from e4s_tpu_torch.ops.kernel_lib import cached
+from e4s_tpu_torch.ops.patch_modconv import pack_weight
 
 PReLU = nn.PReLU
 
@@ -47,18 +48,15 @@ class Conv3x3(nn.Conv2d):
     accepts (a CUDA float32 input, stride 1, Ci a multiple of 4) to the
     hand-written kernel and the rest to ``F.conv2d``. The kernel reads x as
     an NHWC view (free where x is channels-last) and returns a channels-last
-    tensor. Its packed weight is kept by ``patch_modconv.kernel_weights``."""
+    tensor. Its packed weight is kept by ``kernel_lib.cached``."""
 
     def __init__(self, in_channels, out_channels, stride=1):
         super().__init__(in_channels, out_channels, 3, stride, 1, bias=False)
-        self._kernel_weights = None  # pack_weight(weight), built once
-        self._kernel_weights_key = None
 
     def forward(self, x):
         if not kernel_takes(x.device, x.dtype, self.stride, self.in_channels):
             return super().forward(x)
-        packed = kernel_weights(self, self.weight,
-                                lambda: pack_weight(self.weight.detach()))
+        packed = cached(self, (self.weight,), lambda: pack_weight(self.weight.detach()))
         out = conv3x3_nhwc(x.permute(0, 2, 3, 1).contiguous(), self.weight, packed)
         return out.permute(0, 3, 1, 2)
 

@@ -15,6 +15,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from e4s_tpu_torch.ops import conv3x3_n32 as n32
+from e4s_tpu_torch.ops.kernel_lib import cached
 
 
 def pixel_unshuffle(x, scale: int):
@@ -61,7 +62,7 @@ class RRDBNet(nn.Module):
         super().__init__()
         self.scale = scale
         self.num_feat, self.num_grow_ch = num_feat, num_grow_ch
-        self._kernel = None  # (convs, steps, key, packed) of the kernel path
+        self._kernel = None  # (convs, steps) of the kernel path
         in_ch = num_in_ch * {2: 4, 1: 16}.get(scale, 1)
         self.conv_first = nn.Conv2d(in_ch, num_feat, 3, 1, 1)
         self.body = nn.Sequential(*[RRDB(num_feat, num_grow_ch)
@@ -85,10 +86,6 @@ class RRDBNet(nn.Module):
         for conv in (self.conv_up1, self.conv_up2):
             feat = _lrelu(conv(feat.repeat_interleave(2, -2).repeat_interleave(2, -1)))
         return self.conv_last(_lrelu(self.conv_hr(feat)))
-
-    def __getstate__(self):
-        # a copy (the chain's bf16 deep copy) makes its own kernel tables
-        return {**super().__getstate__(), "_kernel": None}
 
     def _convs(self):
         """The convs of ``_steps``, in its order."""
@@ -120,22 +117,15 @@ class RRDBNet(nn.Module):
 
     def _table(self, device):
         """(convs, steps, packed) of the kernel path: the convs and their
-        ``_steps`` made once; on a CUDA device their ``n32.pack``, kept and
-        built again when a weight or bias changes in place or moves (the key
-        of ``patch_modconv.kernel_weights``, over all 698 tensors)."""
+        ``_steps`` made once; on a CUDA device their ``n32.pack``, kept by
+        ``kernel_lib.cached`` over all 698 weights and biases."""
         if self._kernel is None:
-            self._kernel = (self._convs(), self._steps(), None, None)
-        convs, steps, key, packed = self._kernel
+            self._kernel = (self._convs(), self._steps())
+        convs, steps = self._kernel
         if device.type != "cuda":
             return convs, steps, None
-        ps = [p for c in convs for p in (c.weight, c.bias)]
-        now = (ps[0].device, ps[0].dtype, *((p._version, p.data_ptr()) for p in ps))
-        if now != key:
-            with torch.no_grad():
-                packed = n32.pack(steps, [c.weight for c in convs],
-                                  [c.bias for c in convs])
-            self._kernel = (convs, steps, now, packed)
-        return convs, steps, packed
+        ws, bs = [c.weight for c in convs], [c.bias for c in convs]
+        return convs, steps, cached(self, ws + bs, lambda: n32.pack(steps, ws, bs))
 
     def forward_nhwc(self, x):
         """The forward after the pixel unshuffle with the 32-channel convs as

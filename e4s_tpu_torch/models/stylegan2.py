@@ -36,7 +36,7 @@ from e4s_tpu_torch.ops.modconv import (
     masked_torgb,
     modulated_conv2d,
 )
-from e4s_tpu_torch.ops.patch_modconv import kernel_weights
+from e4s_tpu_torch.ops.kernel_lib import cached
 from e4s_tpu_torch.ops.upfirdn2d import make_kernel, upsample2
 
 
@@ -87,8 +87,6 @@ class ModulatedConv2d(nn.Module):
         self.blur_kernel = tuple(blur_kernel)
         if upsample:
             self.blur = _FirKernel(blur_kernel, 4.0)
-        self._kernel_weights = None  # masked_conv_weights, built once
-        self._kernel_weights_key = None
 
     def reset_parameters(self, generator):
         with torch.no_grad():
@@ -96,9 +94,8 @@ class ModulatedConv2d(nn.Module):
 
     def _masked_weights(self, w_scaled):
         """The masked conv kernel's weights (the 3x3 or up-phase weights and
-        their packed layout), kept as ``patch_modconv.kernel_weights`` keeps
-        a kernel's layout of a weight."""
-        return kernel_weights(self, self.weight, lambda: masked_conv_weights(
+        their packed layout), kept by ``kernel_lib.cached``."""
+        return cached(self, (self.weight,), lambda: masked_conv_weights(
             w_scaled, self.upsample, self.blur_kernel))
 
     def forward(self, x, style, mask=None):

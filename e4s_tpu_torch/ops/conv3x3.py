@@ -15,7 +15,7 @@ GEMM on the tensor cores in the 3xTF32 split (f32-like accuracy), both
 operands read by wgmma from shared memory, split K with a fixed-order
 second pass for small grids. It takes the masked conv's packed f32 weight
 (``patch_modconv.pack_weight``; the model packs each weight once and keeps
-it) and is built with it by ``patch_modconv.build``.
+it). ``ops/kernel_lib.py`` builds the source into its own library.
 """
 
 from __future__ import annotations
@@ -25,8 +25,11 @@ import functools
 import torch
 import torch.nn.functional as F
 
+from e4s_tpu_torch.ops import kernel_lib
 from e4s_tpu_torch.ops import patch_modconv as pmc
+from e4s_tpu_torch.ops.kernel_lib import INT, PTR
 
+_ENTRIES = {"conv3x3_tf32": [PTR] * 4 + [INT] * 8 + [PTR]}  # of the .cu
 TILE_K = pmc.TILE_K[torch.float32]  # input channels of a K step
 # pixel tiles the kernel has, in the order the plan prefers them on a tie
 TILES = ((16, 16), (8, 16), (8, 8))
@@ -79,16 +82,13 @@ def _launch(x, w, packed=None):
     B, H, W, Ci = x.shape
     Co = w.shape[0]
     dev = x.device
-    if x.dtype != torch.float32:
-        raise TypeError(f"the kernel takes float32, not {x.dtype}")
+    kernel_lib.check("x", x, (B, H, W, Ci), dev, torch.float32)
     if tuple(w.shape) != (Co, Ci, 3, 3):
         raise ValueError(f"w has shape {tuple(w.shape)}, want {(Co, Ci, 3, 3)}")
     if w.dtype != torch.float32:
         raise TypeError(f"w is {w.dtype}, x float32: the kernel casts nothing")
     if w.device != dev:
         raise ValueError(f"w is on {w.device}, x on {dev}")
-    if not x.is_contiguous():
-        raise ValueError("x must be a contiguous NHWC tensor")
     if Ci % 4:
         raise ValueError(f"Ci={Ci}: the kernel takes a multiple of 4 "
                          "(16-byte copies)")
@@ -96,13 +96,13 @@ def _launch(x, w, packed=None):
         raise ValueError(f"the kernel runs on a CUDA device, not {dev}")
     if packed is None:
         packed = pmc.pack_weight(w)
-    pmc._check("packed weight", packed, pmc.packed_shape(1, Co, Ci), dev,
-               torch.float32)
-    fn = pmc._load()["conv3x3"].conv3x3_tf32
+    kernel_lib.check("packed weight", packed, pmc.packed_shape(1, Co, Ci), dev,
+                     torch.float32)
+    fn = kernel_lib.load("conv3_tf32", _ENTRIES).conv3x3_tf32
     out = torch.empty((B, H, W, Co), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        th, tw, splits = plan(B, H, W, Ci, Co, pmc._sm_count(dev.index))
+        th, tw, splits = plan(B, H, W, Ci, Co, kernel_lib.sm_count(dev))
         part = None
         if splits > 1:
             part = torch.empty((splits, *out.shape), dtype=torch.float32,
@@ -110,44 +110,20 @@ def _launch(x, w, packed=None):
         err = fn(x.data_ptr(), packed.data_ptr(), out.data_ptr(),
                  None if part is None else part.data_ptr(),
                  B, H, W, Ci, Co, th, tw, splits, stream)
-    if err != 0:
-        raise RuntimeError(f"conv3x3_tf32 launch failed: cudaError {err}")
+    kernel_lib.check_launch("conv3x3_tf32", err)
     conv3x3_nhwc.launches += 1
     return out
-
-
-class _Conv3x3(torch.autograd.Function):
-    """Kernel forward; the backward differentiates the plain version, as
-    the masked conv's ``_PatchModConv3`` does. There is no backward kernel.
-    ``packed`` (a layout of ``w``) takes no gradient."""
-
-    @staticmethod
-    def forward(ctx, x, w, packed=None):
-        ctx.save_for_backward(x, w)
-        return _launch(x, w, packed)
-
-    @staticmethod
-    def backward(ctx, g):
-        x, w = (t.detach().requires_grad_(need)
-                for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad))
-        wanted = [t for t in (x, w) if t.requires_grad]
-        with torch.enable_grad():
-            grads = iter(torch.autograd.grad(conv3x3_nhwc_plain(x, w), wanted, g))
-        return tuple(next(grads) if t.requires_grad else None
-                     for t in (x, w)) + (None,)
 
 
 def conv3x3_nhwc(x, w, packed=None):
     """Plain 3x3 conv, stride 1, padding 1: x [B,H,W,Ci] -> [B,H,W,Co]. A
     CPU tensor takes the plain version; a CUDA tensor launches the kernel
-    (building it on first use) or raises, through the autograd Function
-    only where a gradient is wanted. ``packed``: ``pack_weight(w)`` kept by
-    the caller, or None."""
+    (building it on first use) or raises; a gradient goes through the plain
+    version (``kernel_lib.PlainGrad``). ``packed``: ``pack_weight(w)`` kept
+    by the caller, or None."""
     if x.device.type == "cpu":
         return conv3x3_nhwc_plain(x, w)
-    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
-        return _Conv3x3.apply(x, w, packed)
-    return _launch(x, w, packed)
+    return kernel_lib.with_plain_grad(_launch, conv3x3_nhwc_plain, (x, w), packed)
 
 
 # Kernel launches since the last reset; a run sets it to 0 before the path

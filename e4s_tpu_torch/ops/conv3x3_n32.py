@@ -24,8 +24,7 @@ on an H100 with TF32 off, cuDNN ran them on its f32 SIMT kernels. The kernel
 of fused multiply-adds over the input channels, tap rows and tap columns,
 so its results are cuDNN's bit for bit; the source note gives its design.
 It takes each weight packed for its loads (``pack_weight``, made once per
-weight by ``pack``) and is built with the other kernels by
-``patch_modconv.build``.
+weight by ``pack``); ``ops/kernel_lib.py`` builds it into its own library.
 """
 
 from __future__ import annotations
@@ -37,8 +36,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from e4s_tpu_torch.ops import patch_modconv as pmc
+from e4s_tpu_torch.ops import kernel_lib
+from e4s_tpu_torch.ops.kernel_lib import INT, PTR
 
+_ENTRIES = {"conv3_n32_run": [PTR, PTR, INT, PTR, PTR, INT, INT] + [PTR] * 5}  # of the .cu
 CO = 32  # output channels of every conv the kernel takes
 TILE_K = 8  # input channels of a stage
 
@@ -158,7 +159,7 @@ def run(steps, bufs, weights, biases, packed=None):
     if len(packed.steps) != n or packed.wpack.device != dev or packed.bias.device != dev:
         raise ValueError(f"packed tables of {len(packed.steps)} steps on "
                          f"{packed.wpack.device}, want {n} on {dev}")
-    fn = pmc._load()["conv3x3_n32"].conv3_n32_run
+    fn = kernel_lib.load("conv3_n32_f32", _ENTRIES).conv3_n32_run
     ptrs = (ctypes.c_void_p * len(bufs))(*(t.data_ptr() for t in bufs))
     dims = (ctypes.c_int32 * (3 * len(bufs)))(*(d for t in bufs for d in t.shape[1:]))
     with torch.cuda.device(dev):
@@ -166,8 +167,7 @@ def run(steps, bufs, weights, biases, packed=None):
         err = fn(packed.steps.ctypes.data, packed.alphas.ctypes.data, n, ptrs, dims,
                  len(bufs), B, packed.wpack.data_ptr(), packed.woff.ctypes.data,
                  packed.lci.ctypes.data, packed.bias.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"conv3_n32_run failed: cudaError {err}")
+    kernel_lib.check_launch("conv3_n32_run", err)
     conv3x3_n32.launches += n
 
 

@@ -1,5 +1,5 @@
-"""Patch-modulated 3x3 conv: the hand-written CUDA kernel, its wrapper, its
-plain PyTorch version and its build.
+"""Patch-modulated 3x3 conv: the hand-written CUDA kernel, its wrapper and
+its plain PyTorch version.
 
     out[b,h,w,o] = dmap[b,h,w,o] * sum_{ty,tx,i} w[o,i,ty,tx]
                                    * smap[b,h,w,i] * x[b,h+ty-1,w+tx-1,i]
@@ -33,60 +33,30 @@ in the same launch. Each source note gives its tiling.
 
 The kernels take the weight packed into per-step tiles (``pack_weight``;
 for f32 also split into TF32 halves); the model packs each weight once and
-keeps it (``models/stylegan2.py::ModulatedConv2d``). Each source is built
-at first use with ``nvcc`` (one process per source, run together) into a
-shared library with a plain C interface (loaded with ``ctypes``) under
-``e4s_tpu_torch/build/``.
+keeps it (``models/stylegan2.py::ModulatedConv2d``). ``ops/kernel_lib.py``
+builds each source into its own library and loads it.
 """
 
 from __future__ import annotations
 
-import ctypes
-import functools
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
-from pathlib import Path
-
 import torch
 import torch.nn.functional as F
 
-_PKG = Path(__file__).resolve().parent.parent
-# each source, built into its own library: the masked conv's two
-# instantiations (keyed by dtype), the plain 3x3 conv of the encoder trunks
-# (``ops/conv3x3.py``) and RealESRNet's 32-channel 3x3 conv
-# (``ops/conv3x3_n32.py``)
-SOURCES = {torch.float32: _PKG / "csrc" / "patch_mod_conv3.cu",
-           torch.bfloat16: _PKG / "csrc" / "patch_mod_conv3_bf16.cu",
-           "conv3x3": _PKG / "csrc" / "conv3_tf32.cu",
-           "conv3x3_n32": _PKG / "csrc" / "conv3_n32_f32.cu"}
-BUILD_DIR = _PKG / "build"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
+from e4s_tpu_torch.ops import kernel_lib
+from e4s_tpu_torch.ops.kernel_lib import INT, PTR
+
 TILE_N = 128  # output channels of a block
 # input channels of a K step: f32 one k8 wgmma depth, bf16 a 32-channel
 # chunk (two k16 slices)
 TILE_K = {torch.float32: 8, torch.bfloat16: 32}
 MAX_CLUSTER = 8  # blocks of a portable thread-block cluster
-# the C entry of each library, and its argument types
-_ENTRY = {torch.float32: "patch_mod_conv3_f32",
-          torch.bfloat16: "patch_mod_conv3_bf16",
-          "conv3x3": "conv3x3_tf32",
-          "conv3x3_n32": "conv3_n32_run"}
-_ptr, _i32 = ctypes.c_void_p, ctypes.c_int
-_ARGTYPES = {
-    "patch_mod_conv3_f32": [_ptr] * 6 + [_i32] * 9 + [_ptr],
-    "patch_mod_conv3_bf16": [_ptr] * 5 + [_i32] * 9 + [_ptr],
-    "conv3x3_tf32": [_ptr] * 4 + [_i32] * 8 + [_ptr],
-    "conv3_n32_run": [_ptr, _ptr, _i32, _ptr, _ptr, _i32, _i32] + [_ptr] * 5,
+# each instantiation's library (source stem), C entry and its argument types
+_LIBRARY = {
+    torch.float32: ("patch_mod_conv3", "patch_mod_conv3_f32",
+                    [PTR] * 6 + [INT] * 9 + [PTR]),
+    torch.bfloat16: ("patch_mod_conv3_bf16", "patch_mod_conv3_bf16",
+                     [PTR] * 5 + [INT] * 9 + [PTR]),
 }
-
-_libs = None
-_lib_lock = threading.Lock()
 
 
 def patch_mod_conv3_nhwc_plain(x, w, smap, dmap):
@@ -184,26 +154,6 @@ def pack_weight(w):
     return torch.stack([hi, _round_tf32(t - hi)], dim=3)
 
 
-def kernel_weights(owner, weight, build):
-    """``build()``, a kernel's layout of the parameter ``weight`` (packed
-    tiles, polyphase weights), kept on ``owner`` (``_kernel_weights``) and
-    built again when the weight changes in place (``load_state_dict``, an
-    optimizer step) or moves. Where the weight takes a gradient it is built
-    per call instead, so the gradient flows through it, and so it is where
-    the weight is not the module's own parameter
-    (``torch.func.functional_call`` with, say, a bf16 cast of it: a
-    temporary whose storage a later one may reuse)."""
-    if not isinstance(weight, torch.nn.Parameter) or (
-            torch.is_grad_enabled() and weight.requires_grad):
-        return build()
-    key = (weight._version, weight.data_ptr(), weight.device, weight.dtype)
-    if owner._kernel_weights_key != key:
-        with torch.no_grad():
-            owner._kernel_weights = build()
-        owner._kernel_weights_key = key
-    return owner._kernel_weights
-
-
 def plan(B, H, W, Ci, Co, phases, sms=132):
     """(tile rows, tile columns, K splits) for one launch of the f32
     kernel. 16x16-pixel tiles from 64^2 up (each weight tile feeds 256
@@ -249,89 +199,6 @@ def plan_bf16(B, H, W, Ci, Co, phases, sms=132):
     return best[1]
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(index):
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
-def _nvcc() -> str:
-    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
-    cand = os.path.join(home, "bin", "nvcc")
-    if os.path.exists(cand):
-        return cand
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
-    return found
-
-
-def library_path(key=torch.float32) -> Path:
-    """Build output of the source of ``key`` (a key of ``SOURCES``), named
-    by a digest of every source and the flags, so an edited source never
-    loads a stale library."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in SOURCES.values():
-        h.update(src.read_bytes())
-    return BUILD_DIR / f"lib{SOURCES[key].stem}_{h.hexdigest()[:16]}.so"
-
-
-def build() -> tuple[list[Path], str]:
-    """Compile every library that is missing, one ``nvcc`` per source, all
-    started together. Returns the library paths and the compilers'
-    ``-Xptxas -v`` reports (registers, shared memory, spills, wgmma
-    serialisation); each report is kept beside its library."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    jobs = {}
-    for key, src in SOURCES.items():
-        out = library_path(key)
-        if out.exists() and out.with_suffix(".log").exists():
-            continue
-        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
-        jobs[key] = (cmd, tmp, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    failed = []
-    for key, (cmd, tmp, proc) in jobs.items():
-        report = proc.communicate()[0]
-        if proc.returncode != 0:
-            failed.append(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-                          f"{report}")
-            continue
-        out = library_path(key)
-        out.with_suffix(".log").write_text(report)
-        os.replace(tmp, out)
-    if failed:
-        raise RuntimeError("\n".join(failed))
-    paths = [library_path(key) for key in SOURCES]
-    return paths, "".join(p.with_suffix(".log").read_text() for p in paths)
-
-
-def _load():
-    global _libs
-    with _lib_lock:
-        if _libs is None:
-            build()
-            libs = {k: ctypes.CDLL(str(library_path(k))) for k in SOURCES}
-            for k, name in _ENTRY.items():
-                fn = getattr(libs[k], name)
-                fn.argtypes = _ARGTYPES[name]
-                fn.restype = ctypes.c_int
-            _libs = libs
-    return _libs
-
-
-def _check(name, t, shape, device, dtype):
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, x on {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} is {t.dtype}, x {dtype}: the kernel takes "
-                        "one dtype and casts nothing")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, want {shape}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
 def _launch(x, w, smap, dmap, packed=None, up=False):
     """One kernel launch (plus the split-K sum where the plan splits), of
     the instantiation of x's dtype (float32 or bfloat16; every input has
@@ -341,12 +208,12 @@ def _launch(x, w, smap, dmap, packed=None, up=False):
     P, s = (4, 2) if up else (1, 1)
     Co = w.shape[-4]
     dev, dt = x.device, x.dtype
-    if dt not in _ENTRY:
+    if dt not in _LIBRARY:
         raise TypeError(f"the kernel takes float32 or bfloat16, not {dt}")
-    _check("x", x, (B, H, W, Ci), dev, dt)
-    _check("smap", smap, (B, s * H, s * W, Ci), dev, dt)
+    kernel_lib.check("x", x, (B, H, W, Ci), dev, dt)
+    kernel_lib.check("smap", smap, (B, s * H, s * W, Ci), dev, dt)
     if dmap is not None:
-        _check("dmap", dmap, (B, s * H, s * W, Co), dev, dt)
+        kernel_lib.check("dmap", dmap, (B, s * H, s * W, Co), dev, dt)
     want_w = (4, Co, Ci, 3, 3) if up else (Co, Ci, 3, 3)
     if tuple(w.shape) != want_w:
         raise ValueError(f"w has shape {tuple(w.shape)}, want {want_w}")
@@ -354,14 +221,15 @@ def _launch(x, w, smap, dmap, packed=None, up=False):
         raise TypeError(f"w is {w.dtype}, x {dt}: the kernel casts nothing")
     if packed is None:
         packed = pack_weight(w)
-    _check("packed weight", packed, packed_shape(P, Co, Ci, dt), dev, dt)
+    kernel_lib.check("packed weight", packed, packed_shape(P, Co, Ci, dt), dev, dt)
     chunk = 16 // x.element_size()
     if Ci % chunk:
         raise ValueError(f"Ci={Ci}: the {dt} kernel takes a multiple of "
                          f"{chunk} (16-byte copies)")
     if dev.type != "cuda":
         raise ValueError(f"the kernel runs on a CUDA device, not {dev}")
-    lib = _load()[dt]
+    stem, entry, argtypes = _LIBRARY[dt]
+    fn = getattr(kernel_lib.load(stem, {entry: argtypes}), entry)
     out = torch.empty((B, s * H, s * W, Co), dtype=dt, device=dev)
     dptr = None if dmap is None else dmap.data_ptr()
     with torch.cuda.device(dev):
@@ -370,77 +238,49 @@ def _launch(x, w, smap, dmap, packed=None, up=False):
             for name, t in (("x", x), ("smap", smap), ("dmap", dmap)):
                 if t is not None and t.data_ptr() % 16:
                     raise ValueError(f"{name} must be 16-byte aligned (TMA)")
-            th, tw, splits = plan_bf16(B, H, W, Ci, Co, P, _sm_count(dev.index))
-            err = lib.patch_mod_conv3_bf16(
+            th, tw, splits = plan_bf16(B, H, W, Ci, Co, P, kernel_lib.sm_count(dev))
+            err = fn(
                 x.data_ptr(), packed.data_ptr(), smap.data_ptr(), dptr,
                 out.data_ptr(), B, H, W, Ci, Co, int(up), th, tw, splits, stream,
             )
         else:
-            th, tw, splits = plan(B, H, W, Ci, Co, P, _sm_count(dev.index))
+            th, tw, splits = plan(B, H, W, Ci, Co, P, kernel_lib.sm_count(dev))
             part = None
             if splits > 1:
                 part = torch.empty((splits, *out.shape), dtype=torch.float32,
                                    device=dev)
-            err = lib.patch_mod_conv3_f32(
+            err = fn(
                 x.data_ptr(), packed.data_ptr(), smap.data_ptr(), dptr,
                 out.data_ptr(), None if part is None else part.data_ptr(),
                 B, H, W, Ci, Co, int(up), th, tw, splits, stream,
             )
-    if err != 0:
-        raise RuntimeError(f"{_ENTRY[dt]} launch failed: cudaError {err}")
+    kernel_lib.check_launch(entry, err)
     patch_mod_conv3_nhwc.launches += 1
     if dt == torch.bfloat16:
         patch_mod_conv3_nhwc.launches_bf16 += 1
     return out
 
 
-class _PatchModConv3(torch.autograd.Function):
-    """Kernel forward; the backward differentiates the plain version, as the
-    JAX package routes the Pallas kernel's gradient through XLA
-    (``e4s_tpu/ops/modconv.py::_pmc_bwd``). There is no backward kernel.
-    ``packed`` (a layout of ``w``) and ``up`` take no gradient."""
-
-    @staticmethod
-    def forward(ctx, x, w, smap, dmap, packed=None, up=False):
-        ctx.save_for_backward(x, w, smap, dmap)
-        ctx.up = up
-        return _launch(x, w, smap, dmap, packed, up)
-
-    @staticmethod
-    def backward(ctx, g):
-        saved = ctx.saved_tensors
-        ins = [
-            None if t is None else t.detach().requires_grad_(need)
-            for t, need in zip(saved, ctx.needs_input_grad)
-        ]
-        wanted = [t for t in ins if t is not None and t.requires_grad]
-        plain = (patch_mod_conv3_up_nhwc_plain if ctx.up
-                 else patch_mod_conv3_nhwc_plain)
-        with torch.enable_grad():
-            out = plain(*ins)
-            grads = iter(torch.autograd.grad(out, wanted, g))
-        return tuple(
-            next(grads) if t is not None and t.requires_grad else None
-            for t in ins
-        ) + (None, None)
-
-
 def patch_mod_conv3_nhwc(x, w, smap, dmap, packed=None):
     """Patch-modulated 3x3 conv. A CPU tensor takes the plain version; a
-    CUDA tensor launches the kernel (building it on first use) or raises.
+    CUDA tensor launches the kernel (building it on first use) or raises;
+    a gradient goes through the plain version (``kernel_lib.PlainGrad``).
     ``packed``: ``pack_weight(w)`` kept by the caller, or None."""
     if x.device.type == "cpu":
         return patch_mod_conv3_nhwc_plain(x, w, smap, dmap)
-    return _PatchModConv3.apply(x, w, smap, dmap, packed, False)
+    return kernel_lib.with_plain_grad(_launch, patch_mod_conv3_nhwc_plain,
+                                      (x, w, smap, dmap), packed, False)
 
 
 def patch_mod_conv3_up_nhwc(x, wp, smap, dmap, packed=None):
     """The masked up-conv: x [B,H,W,Ci], phase weights wp [4,Co,Ci,3,3],
     smap [B,2H,2W,Ci], dmap [B,2H,2W,Co] or None -> [B,2H,2W,Co]. One
-    kernel launch on a CUDA tensor; the plain version on a CPU tensor."""
+    kernel launch on a CUDA tensor, as ``patch_mod_conv3_nhwc``; the plain
+    version on a CPU tensor."""
     if x.device.type == "cpu":
         return patch_mod_conv3_up_nhwc_plain(x, wp, smap, dmap)
-    return _PatchModConv3.apply(x, wp, smap, dmap, packed, True)
+    return kernel_lib.with_plain_grad(_launch, patch_mod_conv3_up_nhwc_plain,
+                                      (x, wp, smap, dmap), packed, True)
 
 
 # Kernel launches since the last reset, one per call of either entry, of

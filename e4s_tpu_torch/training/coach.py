@@ -6,7 +6,7 @@ adversarial G loss, one backward, the optimizer, the EMA), every
 and the real batch, the adversarial D loss) and every ``d_reg_every``
 steps a lazy R1 step (a double backward through D). Every masked layer of
 a G forward launches the masked-conv kernel; its gradient goes through the
-kernel's plain version (``ops/patch_modconv.py::_PatchModConv3``), as the
+kernel's plain version (``ops/kernel_lib.py::PlainGrad``), as the
 JAX package's goes through XLA.
 
 What the JAX package does with a mesh and gradient masks, the port does

@@ -20,7 +20,8 @@ from e4s_tpu_torch.models.encoders import (
 )
 from e4s_tpu_torch.models.layers import init_module_
 from e4s_tpu_torch.ops import conv3x3 as c3
-from e4s_tpu_torch.ops.patch_modconv import kernel_weights, pack_weight
+from e4s_tpu_torch.ops.kernel_lib import cached, with_plain_grad
+from e4s_tpu_torch.ops.patch_modconv import pack_weight
 
 
 @pytest.mark.parametrize("B,H,W,Ci,Co", [(1, 5, 7, 4, 8), (2, 8, 8, 12, 20),
@@ -178,21 +179,24 @@ def test_launch_checks_its_inputs():
 
 
 def test_function_backward_is_the_plain_versions(monkeypatch):
-    """The Function's backward differentiates the plain version: with the
-    launch replaced by the plain version, the gradients w.r.t. x and w are
-    ``F.conv2d``'s."""
+    """``kernel_lib.PlainGrad``'s backward differentiates the plain version:
+    with the launch replaced by the plain version, the gradients w.r.t. x
+    and w are ``F.conv2d``'s."""
     monkeypatch.setattr(c3, "_launch", lambda x, w, packed=None: c3.conv3x3_nhwc_plain(x, w))
     g = torch.Generator().manual_seed(8)
     x = torch.randn((2, 6, 5, 8), generator=g, requires_grad=True)
     w = torch.randn((12, 8, 3, 3), generator=g, requires_grad=True)
     r = torch.randn((2, 6, 5, 12), generator=g)
-    got = torch.autograd.grad((c3._Conv3x3.apply(x, w, None) * r).sum(), (x, w))
+    got = torch.autograd.grad(
+        (with_plain_grad(c3._launch, c3.conv3x3_nhwc_plain, (x, w), None) * r).sum(), (x, w))
     want = torch.autograd.grad(
         (F.conv2d(x.permute(0, 3, 1, 2), w, padding=1).permute(0, 2, 3, 1) * r).sum(),
         (x, w))
     for a, b in zip(got, want):
         torch.testing.assert_close(a, b)
-    (gx,) = torch.autograd.grad((c3._Conv3x3.apply(x, w.detach(), None) * r).sum(), (x,))
+    (gx,) = torch.autograd.grad(
+        (with_plain_grad(c3._launch, c3.conv3x3_nhwc_plain, (x, w.detach()), None) * r).sum(),
+        (x,))
     torch.testing.assert_close(gx, want[0])
 
 
@@ -203,10 +207,10 @@ def test_conv3x3_module_caches_its_packed_weight():
     conv.weight.requires_grad_(False)
 
     def packed():
-        return kernel_weights(conv, conv.weight, lambda: pack_weight(conv.weight))
+        return cached(conv, (conv.weight,), lambda: pack_weight(conv.weight))
 
     a = packed()
-    assert packed() is a is conv._kernel_weights
+    assert packed() is a is conv._kernel_cache.value
     with torch.no_grad():
         conv.weight.mul_(2)
     b = packed()

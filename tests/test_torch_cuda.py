@@ -12,7 +12,6 @@ max |plain|: both sum in f32 and round once, so a result may land on the
 neighbouring bf16 value (one ulp is 2^-8 of the value).
 """
 
-import ctypes
 import math
 import types
 
@@ -23,6 +22,7 @@ import torch
 from e4s_tpu_torch.models.stylegan2 import ModulatedConv2d
 from e4s_tpu_torch.ops import conv3x3 as c3
 from e4s_tpu_torch.ops import conv3x3_n32 as n32
+from e4s_tpu_torch.ops import kernel_lib
 from e4s_tpu_torch.ops import patch_modconv as pmc
 from e4s_tpu_torch.pipelines.face_swap import FaceSwapper
 
@@ -295,9 +295,9 @@ def _bf16_product(x, s):
     """The bf16 kernel's A-operand product alone (mul.rn.bf16x2, through
     the library's test entry ``patch_mod_conv3_bf16_product``): x * s
     elementwise on two contiguous bf16 CUDA tensors of one even size."""
-    fn = pmc._load()[torch.bfloat16].patch_mod_conv3_bf16_product
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    P, I = kernel_lib.PTR, kernel_lib.INT
+    fn = kernel_lib.load("patch_mod_conv3_bf16", {
+        "patch_mod_conv3_bf16_product": [P] * 3 + [I, P]}).patch_mod_conv3_bf16_product
     out = torch.empty_like(x)
     err = fn(x.data_ptr(), s.data_ptr(), out.data_ptr(), x.numel() // 2,
              torch.cuda.current_stream(x.device).cuda_stream)
@@ -358,7 +358,7 @@ def test_bf16_model_packs_bf16_tiles_and_rebuilds_them(card, up):
         before = pmc.patch_mod_conv3_nhwc.launches
         out = layer(x.to(dt), style.to(dt), mask.to(dt))
         assert pmc.patch_mod_conv3_nhwc.launches == before + 1
-        wk, packed = layer._kernel_weights
+        wk, packed = layer._kernel_cache.value
         assert wk.dtype == packed.dtype == dt and out.dtype == dt
         assert tuple(packed.shape) == pmc.packed_shape(4 if up else 1, 16, 32, dt)
         assert torch.isfinite(out).all()
@@ -410,7 +410,7 @@ def test_inversion_step_gradient_on_the_card_matches_the_cpu(card, tmp_path):
 @pytest.mark.parametrize("H,Ci,Co,up", [(16, 512, 512, False), (8, 512, 512, True),
                                         (64, 512, 256, True)])
 def test_patch_mod_conv3_gradients_match_plain(card, dtype, H, Ci, Co, up):
-    """The gradients through ``_PatchModConv3`` (kernel forward, plain
+    """The gradients through ``kernel_lib.PlainGrad`` (kernel forward, plain
     backward) w.r.t. x, the weights (the up-conv's four phase weights),
     smap and dmap at batch 2, against autograd through the plain version on
     the same inputs: the forward's tolerance (the backward re-runs the plain
@@ -686,8 +686,8 @@ def test_conv3x3_kernel_rejects_bad_inputs(card):
 @pytest.mark.parametrize("B,H,Ci,Co", [(2, 16, 512, 512), (2, 64, 256, 256),
                                        (3, 9, 12, 45)])
 def test_conv3x3_gradients_match_conv2d(card, B, H, Ci, Co):
-    """The gradients through the Function (kernel forward, plain backward)
-    w.r.t. x and the weight, against autograd through ``F.conv2d``."""
+    """The gradients through ``kernel_lib.PlainGrad`` (kernel forward, plain
+    backward) w.r.t. x and the weight, against autograd through ``F.conv2d``."""
     x, w = (t.requires_grad_(True) for t in _conv3_inputs(B, H, H, Ci, Co, card))
     r = torch.randn((B, H, H, Co), generator=torch.Generator(device=card).manual_seed(9),
                     device=card)

@@ -27,6 +27,7 @@ from e4s_tpu.ops.upfirdn2d import upsample2 as j_upsample2
 from e4s_tpu.ops.pallas.modconv_tpu import patch_mod_conv3_nhwc as j_pallas
 
 from e4s_tpu_torch.models.stylegan2 import ModulatedConv2d
+from e4s_tpu_torch.ops import kernel_lib
 from e4s_tpu_torch.ops import modconv as tmc
 from e4s_tpu_torch.ops import morphology as tmorph
 from e4s_tpu_torch.ops import patch_modconv as tpmc
@@ -86,9 +87,30 @@ def test_patch_mod_conv3_plain_matches_pallas_interpret(Ci, Co, H, W):
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
 
 
-def test_patch_mod_conv3_autograd_routes_through_plain(monkeypatch):
-    """The autograd.Function's backward differentiates the plain version
-    (the kernel launch itself is stood in for by the plain forward here)."""
+def _grads_through_plain_grad(up, ins, grad_of, with_dmap):
+    """The gradients of sin(masked conv).sum() w.r.t. the inputs ``grad_of``
+    indexes, through ``kernel_lib.with_plain_grad`` with the masked conv's
+    launch and plain version, and through the plain version alone."""
+    plain = tpmc.patch_mod_conv3_up_nhwc_plain if up else tpmc.patch_mod_conv3_nhwc_plain
+    got = []
+    for route in (lambda *t: kernel_lib.with_plain_grad(tpmc._launch, plain, t, None, up),
+                  plain):
+        ts = [_t(v).requires_grad_(i in grad_of) for i, v in enumerate(ins)]
+        if not with_dmap:
+            ts[3] = None
+        torch.sin(route(*ts)).sum().backward()
+        got.append([None if t is None else t.grad for t in ts])
+    return got
+
+
+GRAD_CASES = [((0, 1, 2, 3), True), ((1,), True), ((0, 2), False)]
+
+
+@pytest.mark.parametrize("grad_of,with_dmap", GRAD_CASES)
+def test_patch_mod_conv3_autograd_routes_through_plain(monkeypatch, grad_of, with_dmap):
+    """``kernel_lib.PlainGrad``'s backward differentiates the plain version
+    (the kernel launch itself is stood in for by the plain forward here),
+    for a gradient of every input or of some, with dmap or without."""
     monkeypatch.setattr(
         tpmc, "_launch",
         lambda x, w, smap, dmap, packed, up: tpmc.patch_mod_conv3_nhwc_plain(
@@ -96,12 +118,11 @@ def test_patch_mod_conv3_autograd_routes_through_plain(monkeypatch):
     rng = np.random.RandomState(2)
     ins = [rng.randn(*s).astype(np.float32)
            for s in ((1, 6, 5, 4), (8, 4, 3, 3), (1, 6, 5, 4), (1, 6, 5, 8))]
-    a = [_t(v).requires_grad_() for v in ins]
-    b = [_t(v).requires_grad_() for v in ins]
-    torch.sin(tpmc._PatchModConv3.apply(*a)).sum().backward()
-    torch.sin(tpmc.patch_mod_conv3_nhwc_plain(*b)).sum().backward()
-    for ga, gb in zip(a, b):
-        torch.testing.assert_close(ga.grad, gb.grad, rtol=1e-6, atol=1e-6)
+    a, b = _grads_through_plain_grad(False, ins, grad_of, with_dmap)
+    for i, (ga, gb) in enumerate(zip(a, b)):
+        assert (ga is None) == (gb is None) == (i not in grad_of or not with_dmap and i == 3)
+        if ga is not None:
+            torch.testing.assert_close(ga, gb, rtol=1e-6, atol=1e-6)
 
 
 def test_patch_mod_conv3_wrapper_checks_inputs():
@@ -146,7 +167,8 @@ def test_patch_mod_conv3_up_plain_matches_jax(Ci, Co, H, W):
     assert tpmc.patch_mod_conv3_nhwc.launches == 0  # CPU: no kernel launch
 
 
-def test_patch_mod_conv3_up_autograd_routes_through_plain(monkeypatch):
+@pytest.mark.parametrize("grad_of,with_dmap", GRAD_CASES)
+def test_patch_mod_conv3_up_autograd_routes_through_plain(monkeypatch, grad_of, with_dmap):
     monkeypatch.setattr(
         tpmc, "_launch",
         lambda x, w, smap, dmap, packed, up: tpmc.patch_mod_conv3_up_nhwc_plain(
@@ -154,12 +176,11 @@ def test_patch_mod_conv3_up_autograd_routes_through_plain(monkeypatch):
     rng = np.random.RandomState(13)
     ins = [rng.randn(*s).astype(np.float32) for s in (
         (1, 3, 4, 4), (4, 8, 4, 3, 3), (1, 6, 8, 4), (1, 6, 8, 8))]
-    a = [_t(v).requires_grad_() for v in ins]
-    b = [_t(v).requires_grad_() for v in ins]
-    torch.sin(tpmc._PatchModConv3.apply(*a, None, True)).sum().backward()
-    torch.sin(tpmc.patch_mod_conv3_up_nhwc_plain(*b)).sum().backward()
-    for ga, gb in zip(a, b):
-        torch.testing.assert_close(ga.grad, gb.grad, rtol=1e-6, atol=1e-6)
+    a, b = _grads_through_plain_grad(True, ins, grad_of, with_dmap)
+    for i, (ga, gb) in enumerate(zip(a, b)):
+        assert (ga is None) == (gb is None) == (i not in grad_of or not with_dmap and i == 3)
+        if ga is not None:
+            torch.testing.assert_close(ga, gb, rtol=1e-6, atol=1e-6)
 
 
 @pytest.mark.parametrize("up", [False, True])
@@ -283,17 +304,17 @@ def test_modulated_conv_weights_cache_rebuilds_after_load_state_dict():
     mask = _t(_onehot(rng, 1, 12, 8))
     with torch.no_grad():
         out0 = conv(x, style, mask)
-        cached = conv._kernel_weights
+        cached = conv._kernel_cache.value
         conv(x, style, mask)
-        assert conv._kernel_weights is cached
+        assert conv._kernel_cache.value is cached
         state = {k: v.clone() for k, v in conv.state_dict().items()}
         state["weight"] = torch.randn(state["weight"].shape, generator=g)
         conv.load_state_dict(state)
         out1 = conv(x, style, mask)
-        assert conv._kernel_weights is not cached
+        assert conv._kernel_cache.value is not cached
         fresh = tmc.masked_conv_weights(
             conv.weight[0] * conv.scale, up=True, blur_kernel=conv.blur_kernel)
-        torch.testing.assert_close(conv._kernel_weights[0], fresh[0])
+        torch.testing.assert_close(conv._kernel_cache.value[0], fresh[0])
     assert not torch.allclose(out0, out1)
     conv(x, style, mask).sum().backward()
     assert conv.weight.grad is not None and conv.weight.grad.abs().sum() > 0

@@ -6,6 +6,7 @@ plain version on the card (``tests/test_torch_cuda.py``)."""
 import copy
 import json
 import os
+import pickle
 
 import pytest
 import torch
@@ -75,17 +76,23 @@ def test_kernel_route_is_a_function_of_device_dtype_grad_and_ci(monkeypatch):
 
 def test_state_dict_keys_unchanged_and_tables_not_copied():
     """The reference checkpoint's keys, before and after the NHWC path has
-    kept its tables; a deep copy (the chain's bf16 copy) drops them."""
+    kept its tables; a deep copy (the chain's bf16 copy) or a pickle keeps
+    the step table and drops the packed tables."""
     with open(KEYMAP) as f:
         keymap = json.load(f)
     with torch.device("meta"):  # shapes alone: the full net, nothing drawn
         net = RRDBNet(scale=2)
+    net.requires_grad_(False)
     before = {k: tuple(v.shape) for k, v in net.state_dict().items()}
-    net._table(torch.device("cpu"))  # what the NHWC path keeps
-    assert net._kernel is not None
+    _, steps, packed = net._table(torch.device("cuda"))  # what the card's path keeps
+    assert len(steps) == 349 and packed.wpack.device.type == "meta"
+    assert net._table(torch.device("cuda"))[2] is packed is net._kernel_cache.value
     after = {k: tuple(v.shape) for k, v in net.state_dict().items()}
     assert before == after == {k: tuple(v) for k, v in keymap.items()}
-    assert copy.deepcopy(net)._kernel is None
+    for twin in (copy.deepcopy(net), pickle.loads(pickle.dumps(net))):
+        assert twin._kernel_cache.value is None
+        convs, twin_steps = twin._kernel
+        assert twin_steps == steps and convs[0] is twin.body[0].rdb1.conv1
 
 
 def test_plain_conv_reads_a_channel_prefix_and_writes_at_an_offset():
