@@ -115,7 +115,16 @@ Phases, in order; the first that fails ends the run with a non-zero exit:
      convs as one table call, the whole SR forward on the kernel and on its
      modules (cuDNN), each cold and bit for bit the same, the SR forward's
      host enqueue beside its device time, 349 launches a forward (none in
-     bf16), and the profiler's op list of both forwards.
+     bf16), and the profiler's op list of both forwards;
+ 25. the unmasked StyledConv's kernel (``csrc/styled_conv3_tf32.cu``) at
+     the four unmasked layers of a 1024^2 synthesis at K = 13 (512^2: 128
+     -> 64 up, 64 -> 64; 1024^2: 64 -> 32 up, 32 -> 32) at B = 1 and 8:
+     against its plain version within 1e-4 of max |plain|, each layer's
+     CUDA-event time (cold L2) beside its 3xTF32 bound and the plain
+     version, which is the path the port ran before (``modulated_conv2d``:
+     cuDNN's transposed conv, upfirdn2d's blur, then the noise, bias and
+     LeakyReLU passes; the ``library ms`` yardstick), and the four as one
+     pass (each layer's output the next one's input).
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
 line before it is the per-kernel JSON summary. TF32 is off throughout.
@@ -449,6 +458,105 @@ def phase_conv3x3_launches():
         del swapper
         torch.cuda.empty_cache()
     return CONV3_LAUNCHES_PER_PASS
+
+
+# The unmasked StyledConvs of a 1024^2 synthesis at K = 13 (phase 25):
+# (label, input H=W, Ci, Co, up), in the order of the pass
+STYLED_CONVS = [
+    ("13: 256->512 128->64 up", 256, 128, 64, True),
+    ("14: 512^2 64->64", 512, 64, 64, False),
+    ("15: 512->1024 64->32 up", 512, 64, 32, True),
+    ("16: 1024^2 32->32", 1024, 32, 32, False),
+]
+
+
+def styled_cost(B, H, Ci, Co, up):
+    """(FLOPs, bytes, 3xTF32 bound ms, what bounds it) of one unmasked
+    StyledConv at batch B in polyphase form (an up layer: four 3x3 convs
+    at the input resolution): three TF32 products per multiply-add; x and
+    the weight read once, the output written once."""
+    P, f = (4, 2) if up else (1, 1)
+    flops = 2.0 * B * H * H * Ci * Co * 9 * P
+    nbytes = 4.0 * (B * H * H * Ci + B * f * f * H * H * Co + P * 9 * Ci * Co)
+    t_ops = 3 * flops / PEAK_TF32_FLOPS * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    return flops, nbytes, max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def styled_inputs(B, H, Ci, Co, up, seed):
+    """x [B,Ci,H,H] channels-last, w, s, one noise map, its strength and
+    the bias of one layer, seeded."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    f = 2 if up else 1
+    x = torch.randn((B, Ci, H, H), generator=g, device="cuda").contiguous(
+        memory_format=torch.channels_last)
+    w = torch.randn((Co, Ci, 3, 3), generator=g, device="cuda") / math.sqrt(9 * Ci)
+    s = 1 + 0.5 * torch.randn((B, Ci), generator=g, device="cuda")
+    nz = torch.randn((1, 1, f * H, f * H), generator=g, device="cuda")
+    nw = torch.full((1,), 0.3, device="cuda")
+    bias = 0.1 * torch.randn((Co,), generator=g, device="cuda")
+    return x, w, s, nz, nw, bias
+
+
+def phase_styled_convs(B):
+    """The unmasked StyledConv's kernel at the four layers at batch B:
+    against its plain version (TF32 off) within 1e-4 of max |plain|, each
+    layer's CUDA-event time with a cold L2 against its 3xTF32 bound and the
+    plain version (what the port ran before: the ``library ms``
+    yardstick), then the four as one pass, kernel and plain, each layer's
+    output the next one's input. Weights packed before the timed window,
+    as the model keeps them. Returns the sums (kernel, plain and bound ms,
+    the pass's kernel and plain ms) and the largest max |diff| relative to
+    max |plain|."""
+    from e4s_tpu_torch.ops import styled_conv as sc
+
+    flush = torch.empty(256 * 1024 * 1024, dtype=torch.float32, device="cuda")
+    rows, worst, layers = [], 0.0, []
+    for i, (label, H, Ci, Co, up) in enumerate(STYLED_CONVS):
+        x, *rest = styled_inputs(B, H, Ci, Co, up, 300 + i)
+        packed = sc.styled_conv_weights(rest[0], up)
+        layers.append((rest, packed, up))
+        kern = lambda: sc.styled_conv3(x, *rest, up=up, packed=packed)  # noqa: E731
+        plain = lambda: sc.styled_conv3_plain(x, *rest, up=up)  # noqa: E731
+        got, want = kern(), plain()
+        err = (got - want).abs().max().item()
+        scale = want.abs().max().item()
+        if not (err <= 1e-4 * scale and torch.isfinite(got).all().item()):
+            raise SystemExit(f"FAIL styled_conv3: B={B} {label} max|diff| {err:.3e} "
+                             f"> 1e-4 of {scale:.3e}")
+        worst = max(worst, err / scale)
+        del got, want
+        ms = _time_cuda(kern, flush=flush)
+        plain_ms = _time_cuda(plain, flush=flush)
+        flops, nbytes, bound, by = styled_cost(B, H, Ci, Co, up)
+        th, bn = sc.plan(B, H, H, Ci, Co, up)
+        rows.append(dict(ms=ms, plain_ms=plain_ms, bound_ms=bound))
+        log(f"[styled] f32 B={B} {label:24s} tile {th}x16 N {bn:3d}  kernel {ms:.4f} ms  "
+            f"plain (the port's path before) {plain_ms:.4f} ms  3xTF32 bound "
+            f"{bound:.4f} ms ({by}, share {bound / ms:.3f})  max|diff| {err:.3e} "
+            f"of max|plain| {scale:.3e}")
+        del x
+    x0 = styled_inputs(B, *STYLED_CONVS[0][1:], 300)[0]
+
+    def one_pass(fn):
+        h = x0
+        for rest, packed, up in layers:
+            h = fn(h, rest, packed, up)
+        return h
+
+    pass_ms = _time_cuda(lambda: one_pass(
+        lambda h, r, p, up: sc.styled_conv3(h, *r, up=up, packed=p)), flush=flush)
+    pass_plain = _time_cuda(lambda: one_pass(
+        lambda h, r, p, up: sc.styled_conv3_plain(h, *r, up=up)), flush=flush)
+    total = {k: sum(r[k] for r in rows) for k in ("ms", "plain_ms", "bound_ms")}
+    total.update(pass_ms=pass_ms, pass_plain_ms=pass_plain)
+    log(f"[styled] f32 B={B} the four layers: kernel {total['ms']:.3f} ms (as one pass "
+        f"{pass_ms:.3f}), plain {total['plain_ms']:.3f} ms (one pass {pass_plain:.3f}), "
+        f"3xTF32 bound {total['bound_ms']:.3f} ms (share {total['bound_ms'] / pass_ms:.3f} "
+        "of the pass)")
+    del flush, layers, x0
+    torch.cuda.empty_cache()
+    return total, worst
 
 
 # RealESRNet x4's 32-channel convs on a 256^2 input (phase 24): (label, output
@@ -1998,6 +2106,8 @@ def main():
     launches3 = phase_conv3x3_launches()
     n32_sums, worst_n32 = phase_n32_convs()
     phase_sr_forward()
+    phase_styled_convs(1)
+    styled, worst_styled = phase_styled_convs(8)
     row = dict(route="cuda", replaces="e4s_tpu/ops/pallas/modconv_tpu.py:39",
                library_ms=None)
     summary = {"kernels": [{
@@ -2037,6 +2147,16 @@ def main():
         "plain_ms": n32_sums["forward"]["plain_ms"],
         "library_ms": n32_sums["forward"]["lib_ms"],
         "bound_ms": n32_sums["forward"]["bound_ms"],
+        "bound_by": "operations",
+    }, {
+        "name": "styled_conv3_tf32", "route": "cuda", "replaces": None,
+        "source": "e4s_tpu_torch/csrc/styled_conv3_tf32.cu",
+        "launches": len(STYLED_CONVS),
+        "max_rel_err": worst_styled,
+        "ms": styled["pass_ms"],
+        "plain_ms": styled["pass_plain_ms"],
+        "library_ms": styled["pass_plain_ms"],
+        "bound_ms": styled["bound_ms"],
         "bound_by": "operations",
     }]}
     log(json.dumps(summary))

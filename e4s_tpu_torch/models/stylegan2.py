@@ -36,6 +36,7 @@ from e4s_tpu_torch.ops.modconv import (
     masked_torgb,
     modulated_conv2d,
 )
+from e4s_tpu_torch.ops import styled_conv
 from e4s_tpu_torch.ops.kernel_lib import cached
 from e4s_tpu_torch.ops.upfirdn2d import make_kernel, upsample2
 
@@ -133,7 +134,9 @@ class NoiseInjection(nn.Module):
 
 
 class StyledConv(nn.Module):
-    """ModulatedConv + noise + fused bias/act, with the mask-guided option."""
+    """ModulatedConv + noise + fused bias/act, with the mask-guided option.
+    Unmasked, on a CUDA float32 input, the layer is one launch of
+    ``ops/styled_conv.py``'s kernel (the same function)."""
 
     def __init__(self, in_channel, out_channel, kernel_size, style_dim,
                  upsample=False, blur_kernel=(1, 3, 3, 1), demodulate=True,
@@ -148,7 +151,18 @@ class StyledConv(nn.Module):
         self.mask_op = mask_op
 
     def forward(self, x, style, mask, noise=None):
-        out = self.conv(x, style, mask=mask if self.mask_op else None)
+        conv = self.conv
+        if not self.mask_op and styled_conv.kernel_takes(
+                x, conv.kernel_size, conv.demodulate, conv.upsample, conv.blur_kernel):
+            w_scaled = conv.weight[0] * conv.scale
+            packed = cached(self, (conv.weight,), lambda: styled_conv.styled_conv_weights(
+                w_scaled, conv.upsample, conv.blur_kernel))
+            return styled_conv.styled_conv3(
+                x, w_scaled, conv.modulation(style), noise, self.noise.weight,
+                self.activate.bias, up=conv.upsample,
+                blur_kernel=conv.blur.kernel if conv.upsample else conv.blur_kernel,
+                packed=packed)
+        out = conv(x, style, mask=mask if self.mask_op else None)
         return self.activate(self.noise(out, noise))
 
 

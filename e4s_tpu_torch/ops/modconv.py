@@ -116,21 +116,27 @@ def _composite_up_kernel(w_scaled, bk):
     return E.to(w_scaled.dtype)
 
 
+def up_phase_weights(w_scaled, blur_kernel=(1, 3, 3, 1)):
+    """The four polyphase 3x3 weights [4,Co,Ci,3,3] of blur o
+    conv_transpose2 with the 3x3 ``w_scaled`` and the 4-tap ``blur_kernel``:
+    phase (a, b), at index 2a+b, is a stride-1 padding-1 conv at the input
+    resolution that gives output pixel (2h+a, 2w+b)."""
+    if w_scaled.shape[-1] != 3 or len(blur_kernel) != 4:
+        raise ValueError("the polyphase path takes k=3 and a 4-tap blur only")
+    E = _composite_up_kernel(w_scaled, make_kernel(blur_kernel) * 4.0)
+    # phase kernel K_ab[t] = E[a+4-2t], t in {0,1,2}
+    return torch.stack([E[:, :, a::2, b::2].flip((2, 3))
+                        for a in (0, 1) for b in (0, 1)])
+
+
 def masked_conv_weights(w_scaled, up=False, blur_kernel=(1, 3, 3, 1)):
     """What the kernel of ``masked_modulated_conv2d`` takes for one weight:
     ``(wk, packed)`` with ``wk`` the 3x3 weight, or for ``up`` the four
-    polyphase weights [4,Co,Ci,3,3] of blur o conv_transpose2 (phase
-    (a, b) at index 2a+b), and ``packed`` its kernel layout (``pack_weight``;
-    None on the CPU, where the plain version runs). Fixed at inference: the
-    model builds it once per weight (``ModulatedConv2d``)."""
-    wk = w_scaled
-    if up:
-        if w_scaled.shape[-1] != 3 or len(blur_kernel) != 4:
-            raise ValueError("the polyphase path takes k=3 and a 4-tap blur only")
-        E = _composite_up_kernel(w_scaled, make_kernel(blur_kernel) * 4.0)
-        # phase kernel K_ab[t] = E[a+4-2t], t in {0,1,2}
-        wk = torch.stack([E[:, :, a::2, b::2].flip((2, 3))
-                          for a in (0, 1) for b in (0, 1)])
+    polyphase weights (``up_phase_weights``), and ``packed`` its kernel
+    layout (``pack_weight``; None on the CPU, where the plain version runs).
+    Fixed at inference: the model builds it once per weight
+    (``ModulatedConv2d``)."""
+    wk = up_phase_weights(w_scaled, blur_kernel) if up else w_scaled
     return wk, (pack_weight(wk) if wk.is_cuda else None)
 
 

@@ -106,25 +106,27 @@ def _round_tf32(t):
     return ((bits + 0x1000) & -0x2000).view(torch.float32)
 
 
-def packed_shape(P, Co, Ci, dtype=torch.float32):
-    """Shape of ``pack_weight``'s result for P phases of a ``dtype`` weight."""
+def packed_shape(P, Co, Ci, dtype=torch.float32, tile_n=TILE_N):
+    """Shape of ``pack_weight``'s result for P phases of a ``dtype`` weight
+    (``tile_n`` output channels a block: f32 only)."""
     k = TILE_K[dtype]
-    nk, nco = -(-Ci // k), -(-Co // TILE_N)
+    nk, nco = -(-Ci // k), -(-Co // tile_n)
     if dtype == torch.bfloat16:
         return (P, nk, nco, 3, 3, 2, TILE_N // 8, 2, 8, 8)
-    return (P, nk, nco, 2, 9, TILE_N // 8, 2, 8, 4)
+    return (P, nk, nco, 2, 9, tile_n // 8, 2, 8, 4)
 
 
-def pack_weight(w):
+def pack_weight(w, tile_n=TILE_N):
     """OIHW [Co,Ci,3,3] (stride-1) or [4,Co,Ci,3,3] (up phases) -> the
     kernel's tiles, zero-padded to whole tiles: per phase, K step and
     128-channel block one contiguous tile in the K-major core-matrix layout
     that wgmma reads (8 rows x 16 bytes per core matrix).
 
     f32: [P, K step (8 input channels), block, TF32 half, tap, n // 8,
-    k // 4, n % 8, k % 4]. The halves are the 3xTF32 split of the weight,
-    made once here instead of in every block: hi = tf32(w),
-    lo = tf32(w - hi).
+    k // 4, n % 8, k % 4], with blocks of ``tile_n`` channels (a multiple
+    of 8; ``ops/styled_conv.py`` packs narrower ones). The halves are the
+    3xTF32 split of the weight, made once here instead of in every block:
+    hi = tf32(w), lo = tf32(w - hi).
 
     bf16: [P, K chunk (32 input channels), block, tap row, tap column,
     k16 slice j, n // 8, k // 8, n % 8, k % 8], the weight's own values;
@@ -137,7 +139,7 @@ def pack_weight(w):
     wp = w if w.dim() == 5 else w[None]
     P, Co, Ci = wp.shape[:3]
     k = TILE_K[w.dtype]
-    _, nk, nco = packed_shape(P, Co, Ci, w.dtype)[:3]
+    _, nk, nco = packed_shape(P, Co, Ci, w.dtype, tile_n)[:3]
     if w.dtype == torch.bfloat16:
         w9 = F.pad(wp.permute(0, 3, 4, 1, 2),
                    (0, nk * k - Ci, 0, nco * TILE_N - Co))
@@ -147,8 +149,8 @@ def pack_weight(w):
         t = t.permute(0, 6, 3, 1, 2, 8, 4, 9, 5, 7, 10)
         return t.reshape(packed_shape(P, Co, Ci, w.dtype)).contiguous()
     w9 = wp.permute(0, 3, 4, 1, 2).reshape(P, 9, Co, Ci)
-    w9 = F.pad(w9, (0, nk * k - Ci, 0, nco * TILE_N - Co))
-    t = w9.reshape(P, 9, nco, TILE_N // 8, 8, nk, 2, k // 2).permute(
+    w9 = F.pad(w9, (0, nk * k - Ci, 0, nco * tile_n - Co))
+    t = w9.reshape(P, 9, nco, tile_n // 8, 8, nk, 2, k // 2).permute(
         0, 5, 2, 1, 3, 6, 4, 7)
     hi = _round_tf32(t)
     return torch.stack([hi, _round_tf32(t - hi)], dim=3)

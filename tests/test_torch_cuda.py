@@ -24,6 +24,7 @@ from e4s_tpu_torch.ops import conv3x3 as c3
 from e4s_tpu_torch.ops import conv3x3_n32 as n32
 from e4s_tpu_torch.ops import kernel_lib
 from e4s_tpu_torch.ops import patch_modconv as pmc
+from e4s_tpu_torch.ops import styled_conv as sc
 from e4s_tpu_torch.pipelines.face_swap import FaceSwapper
 
 # (input H=W, Ci, Co) of every patch-modulated conv on the 1024^2 main path;
@@ -151,8 +152,9 @@ def test_patch_mod_conv3_kernel_rejects_bad_inputs(card):
 @pytest.mark.cuda
 def test_swap_on_the_card_matches_the_cpu(card):
     """A small seeded swapper (64^2, K=7: 4 stride-1 + 3 up masked convs,
-    one launch each) on the card and on the CPU, where the kernel's plain
-    version runs instead."""
+    one launch each; the two unmasked StyledConvs at 64^2, one launch each)
+    on the card and on the CPU, where the kernels' plain versions run
+    instead."""
     opts = types.SimpleNamespace(
         num_seg_cls=12, out_size=64, remaining_layer_idx=7, n_styles=10,
         start_from_latent_avg=True, encoder_size=64, parser_size=64,
@@ -163,9 +165,10 @@ def test_swap_on_the_card_matches_the_cpu(card):
     out = {}
     for dev in ("cuda", "cpu"):
         swapper = FaceSwapper(opts, device=dev, seed=2)
-        pmc.patch_mod_conv3_nhwc.launches = 0
+        pmc.patch_mod_conv3_nhwc.launches = sc.styled_conv3.launches = 0
         out[dev] = np.asarray(swapper.swap_from_arrays(src, tgt), np.float64)
         assert pmc.patch_mod_conv3_nhwc.launches == (7 if dev == "cuda" else 0)
+        assert sc.styled_conv3.launches == (2 if dev == "cuda" else 0)
     mse = np.mean((out["cuda"] - out["cpu"]) ** 2)
     assert mse == 0 or 10 * np.log10(255.0 ** 2 / mse) >= 40.0
 
@@ -556,15 +559,20 @@ def _chain_pair():
 @pytest.mark.cuda
 def test_reenact_restore_swap_on_the_card_matches_the_cpu(card):
     """The chain (the stand-in face of ``force_one_face``) and the fused swap
-    after it, card against CPU; 7 kernel launches on the card."""
+    after it, card against CPU; 7 masked-conv launches and 2 of the unmasked
+    StyledConv on the card, none of either in the chain (GPEN keeps its
+    own path)."""
     s, t = _chain_pair()
     out = {}
     for dev in ("cuda", "cpu"):
         swapper = _chain_swapper(dev)
+        sc.styled_conv3.launches = 0
         d = swapper.chain(torch.from_numpy(s).to(dev), torch.from_numpy(t).to(dev))
+        assert sc.styled_conv3.launches == 0
         pmc.patch_mod_conv3_nhwc.launches = 0
         img = swapper.swap_from_arrays(s / 255.0, t / 255.0)
         assert pmc.patch_mod_conv3_nhwc.launches == (7 if dev == "cuda" else 0)
+        assert sc.styled_conv3.launches == (2 if dev == "cuda" else 0)
         assert len(swapper.chain.last_faces) == 1
         out[dev] = (d.cpu().numpy(), np.asarray(img))
     assert _psnr(out["cuda"][0], out["cpu"][0]) >= CHAIN_PSNR_D
@@ -727,7 +735,8 @@ def test_encoder_on_the_card_matches_the_cpu_and_stays_nchw(card):
 def test_swap_and_swap_batch_launch_44_conv3x3_in_f32_and_none_in_bf16(card):
     """A 1024^2 swapper (18 styles, K = 13, seeded weights): 44 conv3x3
     launches per swap and per ``swap_batch`` chunk in f32 and none with
-    ``bf16``, 13 masked-conv launches each."""
+    ``bf16``, 13 masked-conv launches each; the four unmasked StyledConvs
+    are 4 launches of their kernel in f32 and none in bf16."""
     opts = dict(num_seg_cls=12, out_size=1024, remaining_layer_idx=13, n_styles=18,
                 start_from_latent_avg=True)
     rng = np.random.RandomState(6)
@@ -735,12 +744,17 @@ def test_swap_and_swap_batch_launch_44_conv3x3_in_f32_and_none_in_bf16(card):
              for _ in range(2)]
     for bf16, want in ((False, 44), (True, 0)):
         swapper = FaceSwapper(types.SimpleNamespace(**opts, bf16=bf16), device="cuda", seed=0)
+        styled = 0 if bf16 else 4
         c3.conv3x3_nhwc.launches = pmc.patch_mod_conv3_nhwc.launches = 0
+        sc.styled_conv3.launches = 0
         swapper.swap_from_arrays(pairs[0][:1] / 255.0, pairs[1][:1] / 255.0)
         assert (c3.conv3x3_nhwc.launches, pmc.patch_mod_conv3_nhwc.launches) == (want, 13)
+        assert sc.styled_conv3.launches == styled
         c3.conv3x3_nhwc.launches = pmc.patch_mod_conv3_nhwc.launches = 0
+        sc.styled_conv3.launches = 0
         swapper.swap_batch(pairs[0], pairs[1], chunk=2)
         assert (c3.conv3x3_nhwc.launches, pmc.patch_mod_conv3_nhwc.launches) == (want, 13)
+        assert sc.styled_conv3.launches == styled
         del swapper
         torch.cuda.empty_cache()
 
@@ -911,3 +925,146 @@ def test_sr_launches_349_n32_convs_in_f32_and_none_in_bf16(card):
         torch.cuda.synchronize()
         assert out.shape == (1, 3, 256, 192)
         assert n32.conv3x3_n32.launches == want
+
+
+# ------------------------------------------------- the unmasked StyledConv
+
+# (input H=W, Ci, Co, up) of the four unmasked StyledConvs of a 1024^2
+# synthesis at K = 13 (layers 13-16)
+STYLED_SHAPES = [(256, 128, 64, True), (512, 64, 64, False), (512, 64, 32, True),
+                 (1024, 32, 32, False)]
+# (B, H, W, Ci, Co, up): tiles that overhang H and W (8 or 16 x 16), the
+# last N block partial (Co 40 up: 160 columns; Co 24), odd Co (single
+# stores), Ci not a multiple of 8 (a half K step), ch_div's narrow widths (8)
+STYLED_RAGGED = [(2, 5, 7, 8, 8, True), (1, 9, 33, 16, 8, False), (3, 17, 20, 12, 40, True),
+                 (1, 35, 18, 64, 64, False), (2, 13, 21, 8, 24, False), (1, 6, 6, 4, 5, False),
+                 (1, 6, 6, 4, 5, True), (2, 40, 9, 20, 16, True)]
+
+
+def _styled_inputs(B, H, W, Ci, Co, up, dev, noise="batch 1", seed=0):
+    """x [B,Ci,H,W] channels-last, w, s, the noise map (or None), the noise
+    strength and the bias of one layer."""
+    g = torch.Generator(device=dev).manual_seed(seed + H * 1000 + W + Ci + Co)
+    x = torch.randn((B, Ci, H, W), generator=g, device=dev).contiguous(
+        memory_format=torch.channels_last)
+    w = torch.randn((Co, Ci, 3, 3), generator=g, device=dev) / math.sqrt(9 * Ci)
+    s = 1 + 0.5 * torch.randn((B, Ci), generator=g, device=dev)
+    f = 2 if up else 1
+    nb = {"none": 0, "batch 1": 1, "batch B": B}[noise]
+    nz = torch.randn((nb, 1, f * H, f * W), generator=g, device=dev) if nb else None
+    nw = torch.full((1,), 0.3, device=dev)
+    bias = 0.1 * torch.randn((Co,), generator=g, device=dev)
+    return x, w, s, nz, nw, bias
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 8])
+@pytest.mark.parametrize("H,Ci,Co,up", STYLED_SHAPES)
+def test_styled_conv3_kernel_matches_plain_at_the_synthesis_shapes(card, B, H, Ci, Co, up):
+    """One launch against the plain layer (cuDNN, TF32 off) at the four
+    published shapes, B = 1 and 8, within 1e-4 of max |plain|; the output
+    is the plain one's shape in channels-last memory."""
+    args = _styled_inputs(B, H, H, Ci, Co, up, card, noise="batch B" if B == 1 else "batch 1")
+    packed = sc.styled_conv_weights(args[1], up)
+    before = sc.styled_conv3.launches
+    got = sc.styled_conv3(*args, up=up, packed=packed)
+    assert sc.styled_conv3.launches == before + 1
+    want = sc.styled_conv3_plain(*args, up=up)
+    assert got.shape == want.shape
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    _check(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("noise", ["none", "batch B"])
+@pytest.mark.parametrize("B,H,W,Ci,Co,up", STYLED_RAGGED)
+def test_styled_conv3_kernel_ragged_edges(card, B, H, W, Ci, Co, up, noise):
+    """H and W that overhang both tiles, a partial last N block, odd Co, a
+    half K step, narrow widths, with and without noise; bit for bit across
+    two calls."""
+    args = _styled_inputs(B, H, W, Ci, Co, up, card, noise=noise)
+    a = sc.styled_conv3(*args, up=up)
+    b = sc.styled_conv3(*args, up=up)
+    _check(a, sc.styled_conv3_plain(*args, up=up))
+    assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,Ci,Co,up", STYLED_SHAPES)
+def test_styled_conv3_kernel_repeats_bitwise_at_the_plan(card, H, Ci, Co, up):
+    """The plan's own launch at B = 1 (no split K, no atomics): two launches
+    agree bit for bit."""
+    args = _styled_inputs(1, H, H, Ci, Co, up, card)
+    packed = sc.styled_conv_weights(args[1], up)
+    a = sc.styled_conv3(*args, up=up, packed=packed)
+    b = sc.styled_conv3(*args, up=up, packed=packed)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_styled_conv3_kernel_rejects_bad_inputs(card):
+    x, w, s, nz, nw, bias = _styled_inputs(2, 8, 8, 16, 32, True, card)
+    before = sc.styled_conv3.launches
+    with pytest.raises(ValueError):  # the weight on the CPU
+        sc.styled_conv3(x, w.cpu(), s, nz, nw, bias, up=True)
+    with pytest.raises(TypeError):
+        sc.styled_conv3(x.double(), w.double(), s.double(), nz, nw, bias, up=True)
+    with pytest.raises(ValueError):  # noise at the input resolution
+        sc.styled_conv3(x, w, s, nz[:, :, :8, :8].contiguous(), nw, bias, up=True)
+    with pytest.raises(ValueError):  # packed for another layer
+        sc.styled_conv3(x, w, s, nz, nw, bias, up=True,
+                        packed=sc.styled_conv_weights(w, False))
+    assert sc.styled_conv3.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("up", [False, True])
+def test_styled_conv3_gradients_match_plain(card, up):
+    """The gradients through ``kernel_lib.PlainGrad`` (kernel forward, plain
+    backward) w.r.t. x, the weight, the style, the noise strength and the
+    bias, against autograd through the plain layer; one launch."""
+    args = [t.requires_grad_(t.is_floating_point()) if t is not None else t
+            for t in _styled_inputs(2, 16, 16, 32, 32, up, card)]
+    r = torch.randn((2, 32) + ((32, 32) if up else (16, 16)),
+                    generator=torch.Generator(device=card).manual_seed(9), device=card)
+    wrt = [t for t in args if t is not None]
+    sc.styled_conv3.launches = 0
+    got = torch.autograd.grad((sc.styled_conv3(*args, up=up) * r).sum(), wrt)
+    assert sc.styled_conv3.launches == 1
+    want = torch.autograd.grad((sc.styled_conv3_plain(*args, up=up) * r).sum(), wrt)
+    for g, v in zip(got, want):
+        _check(g, v)
+
+
+@pytest.mark.cuda
+def test_gpen_and_bf16_syntheses_launch_no_styled_conv(card):
+    """GPEN keeps its own path: ``FaceEnhancement.process`` (unaligned and
+    aligned) launches the unmasked StyledConv's kernel 0 times; so does a
+    bf16 synthesis, whose unmasked layers stay on cuDNN."""
+    from e4s_tpu_torch.models.gpen.face_enhancement import build_restorer
+    from e4s_tpu_torch.models.gpen.rrdbnet import RRDBNet
+    from e4s_tpu_torch.models.layers import init_module_
+    from e4s_tpu_torch.models.stylegan2 import Generator
+    from e4s_tpu_torch.pipelines.model_io import materialise
+
+    enh = build_restorer(CHAIN_GPEN, device=card, seed=4)
+    enh.srmodel = materialise(lambda: RRDBNet(scale=4, num_block=1), None, 5, card)
+    img = np.kron(np.random.RandomState(3).randint(0, 256, (8, 8, 3)),
+                  np.ones((8, 8, 1))).astype(np.uint8)
+    sc.styled_conv3.launches = 0
+    enh.process(img)
+    enh.process(img, aligned=True)
+    torch.cuda.synchronize()
+    assert sc.styled_conv3.launches == 0
+    G = init_module_(Generator(64, remaining_layer_idx=7, ch_div=8),
+                     torch.Generator().manual_seed(0)).to(card)
+    latent = torch.randn((2, 12, 10, 512), device=card)
+    mask = torch.zeros((2, 12, 64, 64), device=card)
+    mask[:, 0] = 1
+    with torch.no_grad():
+        G([latent], None, mask, input_is_latent=True, randomize_noise=False)
+        assert sc.styled_conv3.launches == 2
+        G.to(torch.bfloat16)([latent.bfloat16()], None, mask.bfloat16(),
+                             input_is_latent=True, randomize_noise=False)
+    assert sc.styled_conv3.launches == 2

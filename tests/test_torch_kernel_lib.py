@@ -65,7 +65,7 @@ def _paths():
 
 def test_every_kernel_source_is_a_library():
     assert STEMS == ["conv3_n32_f32", "conv3_tf32", "patch_mod_conv3",
-                     "patch_mod_conv3_bf16"]
+                     "patch_mod_conv3_bf16", "styled_conv3_tf32"]
     paths = _paths()
     assert len(set(paths.values())) == len(STEMS)
     for stem, path in paths.items():
@@ -85,7 +85,7 @@ def test_editing_one_source_renames_its_library_alone(csrc, stem):
 
 
 def test_a_new_source_is_a_library_that_no_module_names(csrc):
-    """A fifth kernel needs only its source (and its wrapper): it gets its
+    """A new kernel needs only its source (and its wrapper): it gets its
     own library, the others keep theirs, and the seam names no kernel."""
     before = _paths()
     (csrc / "conv_new.cu").write_text('extern "C" int conv_new() { return 0; }\n')
