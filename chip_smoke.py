@@ -432,32 +432,41 @@ def phase_conv3x3(B):
 
 def phase_conv3x3_launches():
     """A 1024^2 FaceSwapper in f32 and with ``bf16``: one swap and one
-    ``swap_batch`` chunk of 8 each. f32: 44 conv3x3 launches a swap and a
-    chunk; bf16: none (cuDNN's bf16 convs); 13 masked-conv launches each."""
+    ``swap_batch`` chunk of 8 each. f32: 44 conv3x3 and 4 styled_conv3
+    launches a swap and a chunk; bf16: none of either (cuDNN's bf16 convs);
+    13 masked-conv launches each. Returns the f32 chunk's (conv3x3,
+    styled_conv3) launches."""
     from e4s_tpu_torch.ops.conv3x3 import conv3x3_nhwc
     from e4s_tpu_torch.ops.patch_modconv import patch_mod_conv3_nhwc
+    from e4s_tpu_torch.ops.styled_conv import styled_conv3
     from e4s_tpu_torch.pipelines.face_swap import FaceSwapper
 
     src, tgt = _batch_pairs()
+    counted = None
     for bf16 in (False, True):
         swapper = FaceSwapper(_opts(1024, 18, bf16=bf16), device="cuda", seed=0)
-        want = 0 if bf16 else CONV3_LAUNCHES_PER_PASS
+        want = (0, 0) if bf16 else (CONV3_LAUNCHES_PER_PASS, STYLED_LAUNCHES_PER_PASS)
+        want += (PMC_LAUNCHES_PER_SWAP,)
         for label, call in (
                 ("swap", lambda: swapper.swap(os.path.join(EXAMPLE, "source.jpg"),
                                               os.path.join(EXAMPLE, "target.jpg"))),
                 ("swap_batch chunk 8", lambda: swapper.swap_batch(src, tgt, chunk=8))):
             conv3x3_nhwc.launches = patch_mod_conv3_nhwc.launches = 0
+            styled_conv3.launches = 0
             call()
             torch.cuda.synchronize()
-            got = (conv3x3_nhwc.launches, patch_mod_conv3_nhwc.launches)
+            got = (conv3x3_nhwc.launches, styled_conv3.launches,
+                   patch_mod_conv3_nhwc.launches)
             log(f"[conv3] {'bf16' if bf16 else 'f32'} {label}: conv3x3 launches "
-                f"{got[0]}, patch_mod_conv3 launches {got[1]}")
-            if got != (want, PMC_LAUNCHES_PER_SWAP):
-                raise SystemExit(f"FAIL conv3: {label} launches {got}, want "
-                                 f"({want}, {PMC_LAUNCHES_PER_SWAP})")
+                f"{got[0]}, styled_conv3 launches {got[1]}, patch_mod_conv3 launches "
+                f"{got[2]}")
+            if got != want:
+                raise SystemExit(f"FAIL conv3: {label} launches {got}, want {want}")
+            if not bf16:
+                counted = got[:2]
         del swapper
         torch.cuda.empty_cache()
-    return CONV3_LAUNCHES_PER_PASS
+    return counted
 
 
 # The unmasked StyledConvs of a 1024^2 synthesis at K = 13 (phase 25):
@@ -468,19 +477,28 @@ STYLED_CONVS = [
     ("15: 512->1024 64->32 up", 512, 64, 32, True),
     ("16: 1024^2 32->32", 1024, 32, 32, False),
 ]
+STYLED_LAUNCHES_PER_PASS = len(STYLED_CONVS)  # 4
 
 
 def styled_cost(B, H, Ci, Co, up):
-    """(FLOPs, bytes, 3xTF32 bound ms, what bounds it) of one unmasked
-    StyledConv at batch B in polyphase form (an up layer: four 3x3 convs
-    at the input resolution): three TF32 products per multiply-add; x and
-    the weight read once, the output written once."""
+    """(bound ms of the function, bound ms of the fold, what bounds each) of
+    one unmasked StyledConv at batch B on the 3xTF32 split (three TF32
+    products per multiply-add); x and the weight read once, the output
+    written once. The function's own products: a 3x3 conv, or for ``up`` a
+    3x3 transposed conv (9 taps an input pixel) and the 4x4 depthwise blur
+    of its 2x output. The fold's: what the kernel computes, an up layer as
+    its four polyphase 3x3 convs at the input resolution (36 taps an input
+    pixel, 4x the transposed conv's)."""
     P, f = (4, 2) if up else (1, 1)
-    flops = 2.0 * B * H * H * Ci * Co * 9 * P
+    own = 2.0 * B * H * H * (9 * Ci * Co + (16 * f * f * Co if up else 0))
+    fold = 2.0 * B * H * H * Ci * Co * 9 * P
     nbytes = 4.0 * (B * H * H * Ci + B * f * f * H * H * Co + P * 9 * Ci * Co)
-    t_ops = 3 * flops / PEAK_TF32_FLOPS * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
-    return flops, nbytes, max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+    out = []
+    for flops in (own, fold):
+        t_ops = 3 * flops / PEAK_TF32_FLOPS * 1e3
+        out.append((max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"))
+    return out
 
 
 def styled_inputs(B, H, Ci, Co, up, seed):
@@ -501,13 +519,14 @@ def styled_inputs(B, H, Ci, Co, up, seed):
 def phase_styled_convs(B):
     """The unmasked StyledConv's kernel at the four layers at batch B:
     against its plain version (TF32 off) within 1e-4 of max |plain|, each
-    layer's CUDA-event time with a cold L2 against its 3xTF32 bound and the
-    plain version (what the port ran before: the ``library ms``
+    layer's CUDA-event time with a cold L2 against its 3xTF32 bounds (the
+    function's own products and the polyphase fold's, ``styled_cost``) and
+    the plain version (what the port ran before: the ``library ms``
     yardstick), then the four as one pass, kernel and plain, each layer's
     output the next one's input. Weights packed before the timed window,
-    as the model keeps them. Returns the sums (kernel, plain and bound ms,
-    the pass's kernel and plain ms) and the largest max |diff| relative to
-    max |plain|."""
+    as the model keeps them. Returns the sums (kernel, plain, bound and
+    fold bound ms, the pass's kernel and plain ms) and the largest max
+    |kernel - plain|."""
     from e4s_tpu_torch.ops import styled_conv as sc
 
     flush = torch.empty(256 * 1024 * 1024, dtype=torch.float32, device="cuda")
@@ -524,16 +543,17 @@ def phase_styled_convs(B):
         if not (err <= 1e-4 * scale and torch.isfinite(got).all().item()):
             raise SystemExit(f"FAIL styled_conv3: B={B} {label} max|diff| {err:.3e} "
                              f"> 1e-4 of {scale:.3e}")
-        worst = max(worst, err / scale)
+        worst = max(worst, err)
         del got, want
         ms = _time_cuda(kern, flush=flush)
         plain_ms = _time_cuda(plain, flush=flush)
-        flops, nbytes, bound, by = styled_cost(B, H, Ci, Co, up)
-        th, bn = sc.plan(B, H, H, Ci, Co, up)
-        rows.append(dict(ms=ms, plain_ms=plain_ms, bound_ms=bound))
-        log(f"[styled] f32 B={B} {label:24s} tile {th}x16 N {bn:3d}  kernel {ms:.4f} ms  "
-            f"plain (the port's path before) {plain_ms:.4f} ms  3xTF32 bound "
-            f"{bound:.4f} ms ({by}, share {bound / ms:.3f})  max|diff| {err:.3e} "
+        (bound, by), (fold, fold_by) = styled_cost(B, H, Ci, Co, up)
+        bn = sc.tile_n(Co, up)
+        rows.append(dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, fold_bound_ms=fold))
+        log(f"[styled] f32 B={B} {label:24s} tile {16 if bn == 32 else 8}x16 N {bn:3d}  "
+            f"kernel {ms:.4f} ms  plain (the port's path before) {plain_ms:.4f} ms  "
+            f"3xTF32 bound {bound:.4f} ms ({by}, share {bound / ms:.3f}), of the fold "
+            f"{fold:.4f} ms ({fold_by}, share {fold / ms:.3f})  max|diff| {err:.3e} "
             f"of max|plain| {scale:.3e}")
         del x
     x0 = styled_inputs(B, *STYLED_CONVS[0][1:], 300)[0]
@@ -548,12 +568,14 @@ def phase_styled_convs(B):
         lambda h, r, p, up: sc.styled_conv3(h, *r, up=up, packed=p)), flush=flush)
     pass_plain = _time_cuda(lambda: one_pass(
         lambda h, r, p, up: sc.styled_conv3_plain(h, *r, up=up)), flush=flush)
-    total = {k: sum(r[k] for r in rows) for k in ("ms", "plain_ms", "bound_ms")}
+    total = {k: sum(r[k] for r in rows)
+             for k in ("ms", "plain_ms", "bound_ms", "fold_bound_ms")}
     total.update(pass_ms=pass_ms, pass_plain_ms=pass_plain)
     log(f"[styled] f32 B={B} the four layers: kernel {total['ms']:.3f} ms (as one pass "
         f"{pass_ms:.3f}), plain {total['plain_ms']:.3f} ms (one pass {pass_plain:.3f}), "
         f"3xTF32 bound {total['bound_ms']:.3f} ms (share {total['bound_ms'] / pass_ms:.3f} "
-        "of the pass)")
+        f"of the pass), of the fold {total['fold_bound_ms']:.3f} ms (share "
+        f"{total['fold_bound_ms'] / pass_ms:.3f})")
     del flush, layers, x0
     torch.cuda.empty_cache()
     return total, worst
@@ -1618,10 +1640,13 @@ def _reenact_other_paths(swapper):
 
 def phase_reenact_swaps():
     """The re-enacted 1024^2 swap at full width in f32 and bf16: per-stage
-    CUDA-event times, host ms, peak memory, 13 launches per request; then
-    the bf16 chain's D against the f32 chain's."""
+    CUDA-event times, host ms, peak memory, 13 masked-conv launches per
+    request (in f32 also 44 conv3x3, 349 conv3x3_n32 and 4 styled_conv3,
+    in bf16 none of these); then the bf16 chain's D against the f32
+    chain's."""
     from e4s_tpu_torch.ops.conv3x3 import conv3x3_nhwc
     from e4s_tpu_torch.ops.conv3x3_n32 import conv3x3_n32
+    from e4s_tpu_torch.ops.styled_conv import styled_conv3
     from e4s_tpu_torch.pipelines.face_swap import FaceSwapper
 
     t0 = time.perf_counter()
@@ -1643,13 +1668,13 @@ def phase_reenact_swaps():
             events.clear()
             torch.cuda.synchronize()
             _reset_launches()
-            conv3x3_nhwc.launches = conv3x3_n32.launches = 0
+            conv3x3_nhwc.launches = conv3x3_n32.launches = styled_conv3.launches = 0
             t0 = time.perf_counter()
             arr = np.asarray(swapper.swap(src, tgt))
             torch.cuda.synchronize()
             host = (time.perf_counter() - t0) * 1e3
             total, n16 = _launch_counts()
-            others = (conv3x3_nhwc.launches, conv3x3_n32.launches)
+            others = (conv3x3_nhwc.launches, conv3x3_n32.launches, styled_conv3.launches)
             stages = {k: sum(a.elapsed_time(b) for a, b in v) for k, v in events.items()}
             # the request's host time outside every timed stage: the image
             # loads, the uploads, the download and the host between stages
@@ -1658,7 +1683,7 @@ def phase_reenact_swaps():
                 f"{host:.1f} ms host, gap {gap:.1f}; " + ", ".join(
                     f"{k} {stages[k]:.2f}" for k in [c[0] for c in CHAIN_STAGES] + ["swap"])
                 + f" ms (CUDA events); patch_mod_conv3 launches {total} (bf16 {n16}), "
-                f"conv3x3 {others[0]}, conv3x3_n32 {others[1]}; "
+                f"conv3x3 {others[0]}, conv3x3_n32 {others[1]}, styled_conv3 {others[2]}; "
                 f"faces {len(swapper.chain.last_faces)}; mean pixel {arr.mean():.2f}")
             if arr.shape != (1024, 1024, 3) or arr.dtype != np.uint8:
                 raise SystemExit(f"FAIL reenact: result {arr.shape} {arr.dtype}")
@@ -1667,10 +1692,11 @@ def phase_reenact_swaps():
             if total != PMC_LAUNCHES_PER_SWAP or n16 != (total if bf16 else 0):
                 raise SystemExit(f"FAIL reenact: {total} launches ({n16} bf16), want "
                                  f"{PMC_LAUNCHES_PER_SWAP}{' bf16' if bf16 else ''}")
-            want = (0, 0) if bf16 else (CONV3_LAUNCHES_PER_PASS, N32_LAUNCHES_PER_SR)
+            want = (0, 0, 0) if bf16 else (
+                CONV3_LAUNCHES_PER_PASS, N32_LAUNCHES_PER_SR, STYLED_LAUNCHES_PER_PASS)
             if others != want:
-                raise SystemExit(f"FAIL reenact: conv3x3 / conv3x3_n32 launches {others}, "
-                                 f"want {want}")
+                raise SystemExit(f"FAIL reenact: conv3x3 / conv3x3_n32 / styled_conv3 "
+                                 f"launches {others}, want {want}")
         log(f"[reenact] {tag} peak device memory "
             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
         if not bf16:
@@ -2103,7 +2129,7 @@ def main():
     log(f"[time] phases 20-22: {time.perf_counter() - t0:.1f} s wall")
     phase_conv3x3(2)
     conv3, worst3 = phase_conv3x3(16)
-    launches3 = phase_conv3x3_launches()
+    launches3, launches_styled = phase_conv3x3_launches()
     n32_sums, worst_n32 = phase_n32_convs()
     phase_sr_forward()
     phase_styled_convs(1)
@@ -2151,12 +2177,13 @@ def main():
     }, {
         "name": "styled_conv3_tf32", "route": "cuda", "replaces": None,
         "source": "e4s_tpu_torch/csrc/styled_conv3_tf32.cu",
-        "launches": len(STYLED_CONVS),
-        "max_rel_err": worst_styled,
+        "launches": launches_styled,
+        "max_abs_err": worst_styled,
         "ms": styled["pass_ms"],
         "plain_ms": styled["pass_plain_ms"],
         "library_ms": styled["pass_plain_ms"],
         "bound_ms": styled["bound_ms"],
+        "fold_bound_ms": styled["fold_bound_ms"],
         "bound_by": "operations",
     }]}
     log(json.dumps(summary))

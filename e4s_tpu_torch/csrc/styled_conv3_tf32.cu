@@ -470,9 +470,9 @@ cudaError_t launch(const Args& a, int nblocks_n, cudaStream_t stream) {
 }  // namespace
 
 // Plain C entry for ctypes. Launches on `stream`, does not synchronise, and
-// returns the cudaError_t of the launch (0 on success). th x 16: the pixel
-// tile (8 x 16 at N = 64, 16 x 16 at N = 32); bn: the N tile, which the
-// packed weight `wp` was packed for. noise
+// returns the cudaError_t of the launch (0 on success). bn: the N tile, 64
+// or 32, which the packed weight `wp` was packed for; it sets the pixel
+// tile (8 x 16 at N = 64, 16 x 16 at N = 32). noise
 // may be null; noise_bstride is 0 for one noise map shared by the batch,
 // else Ho * Wo.
 extern "C" int styled_conv3_tf32(const float* x, const float* wp,
@@ -480,11 +480,10 @@ extern "C" int styled_conv3_tf32(const float* x, const float* wp,
                                  const float* bias, const float* noise,
                                  const float* nw, float* out, int B, int H,
                                  int W, int Ci, int Co, int up,
-                                 int noise_bstride, int th, int bn,
+                                 int noise_bstride, int bn,
                                  void* stream_ptr) {
-  const bool tile_ok = (th == 8 && bn == 64) || (th == 16 && bn == 32);
-  if (!tile_ok || Ci % 4 != 0 || B < 1 || H < 1 || W < 1 || Ci < 4 ||
-      Co < 1 || (noise && !nw))
+  if ((bn != 64 && bn != 32) || Ci % 4 != 0 || B < 1 || H < 1 || W < 1 ||
+      Ci < 4 || Co < 1 || (noise && !nw))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const int ncols = (up ? 4 : 1) * Co;

@@ -135,8 +135,9 @@ class NoiseInjection(nn.Module):
 
 class StyledConv(nn.Module):
     """ModulatedConv + noise + fused bias/act, with the mask-guided option.
-    Unmasked, on a CUDA float32 input, the layer is one launch of
-    ``ops/styled_conv.py``'s kernel (the same function)."""
+    Unmasked, the layer is ``ops/styled_conv.py``'s: one launch of its
+    kernel on a CUDA float32 input with grad mode off, else its plain
+    version (the same composition of these modules' functions)."""
 
     def __init__(self, in_channel, out_channel, kernel_size, style_dim,
                  upsample=False, blur_kernel=(1, 3, 3, 1), demodulate=True,
@@ -152,18 +153,20 @@ class StyledConv(nn.Module):
 
     def forward(self, x, style, mask, noise=None):
         conv = self.conv
-        if not self.mask_op and styled_conv.kernel_takes(
-                x, conv.kernel_size, conv.demodulate, conv.upsample, conv.blur_kernel):
-            w_scaled = conv.weight[0] * conv.scale
+        if self.mask_op:
+            return self.activate(self.noise(conv(x, style, mask=mask), noise))
+        w_scaled = conv.weight[0] * conv.scale
+        tensors = (x, w_scaled, conv.modulation(style), noise, self.noise.weight,
+                   self.activate.bias)
+        blur = conv.blur.kernel if conv.upsample else conv.blur_kernel
+        if styled_conv.kernel_takes(x, conv.kernel_size, conv.demodulate, conv.upsample,
+                                    conv.blur_kernel, torch.is_grad_enabled()):
             packed = cached(self, (conv.weight,), lambda: styled_conv.styled_conv_weights(
                 w_scaled, conv.upsample, conv.blur_kernel))
-            return styled_conv.styled_conv3(
-                x, w_scaled, conv.modulation(style), noise, self.noise.weight,
-                self.activate.bias, up=conv.upsample,
-                blur_kernel=conv.blur.kernel if conv.upsample else conv.blur_kernel,
-                packed=packed)
-        out = conv(x, style, mask=mask if self.mask_op else None)
-        return self.activate(self.noise(out, noise))
+            return styled_conv.styled_conv3(*tensors, up=conv.upsample, blur_kernel=blur,
+                                            packed=packed)
+        return styled_conv.styled_conv3_plain(*tensors, up=conv.upsample, blur_kernel=blur,
+                                              demodulate=conv.demodulate)
 
 
 class ToRGB(nn.Module):

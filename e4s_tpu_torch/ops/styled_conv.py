@@ -36,31 +36,28 @@ from e4s_tpu_torch.ops.kernel_lib import INT, PTR
 from e4s_tpu_torch.ops.modconv import demod_coeff, modulated_conv2d, up_phase_weights
 from e4s_tpu_torch.ops.patch_modconv import pack_weight, packed_shape
 
-_ENTRIES = {"styled_conv3_tf32": [PTR] * 8 + [INT] * 9 + [PTR]}  # of the .cu
+_ENTRIES = {"styled_conv3_tf32": [PTR] * 8 + [INT] * 8 + [PTR]}  # of the .cu
 
 
 def tile_n(Co, up) -> int:
-    """Output columns of a block: the launch's P * Co columns (P = 4 phases
-    for ``up``) in one block of 32 where they fit, else blocks of 64. The
-    weight is packed for it."""
+    """The launch's plan: output columns of a block, and with them the
+    pixel tile (the C entry derives it). The P * Co columns (P = 4 phases
+    for ``up``) go in one block of 32 (16 x 16 pixels) where they fit, else
+    in blocks of 64 (8 x 16 pixels). At the four layers of a 1024^2
+    synthesis, B = 1 and 8, these two were the fastest of every tile of 8
+    or 16 rows and N = 32, 64 or 128 that the kernel was first built with
+    (PERF.md, PR 17). The weight is packed for it."""
     return 32 if (4 if up else 1) * Co <= 32 else 64
 
 
-def plan(B, H, W, Ci, Co, up):
-    """(tile rows, N tile) of one launch; the tile is 16 columns wide: 8
-    rows at N = 64, 16 at N = 32. At the four layers of a 1024^2 synthesis,
-    B = 1 and 8, these were the fastest of every tile of 8 or 16 rows and
-    N = 32, 64 or 128 that the kernel was first built with; it keeps these
-    two (``scripts/sweep_styled_conv_plans.py`` times them)."""
-    bn = tile_n(Co, up)
-    return (16 if bn == 32 else 8), bn
-
-
-def kernel_takes(x, kernel_size, demodulate, up, blur_kernel) -> bool:
+def kernel_takes(x, kernel_size, demodulate, up, blur_kernel, grad) -> bool:
     """Whether a StyledConv on ``x`` goes to the kernel: a CUDA float32
     input, a demodulated 3x3 weight, Ci a multiple of 4 (one 16-byte copy),
-    and for ``up`` a 4-tap blur (the polyphase fold)."""
-    return (x.device.type == "cuda" and x.dtype == torch.float32
+    for ``up`` a 4-tap blur (the polyphase fold), and grad mode off
+    (``grad``: ``torch.is_grad_enabled()``), so that the gradient steps of
+    training and inversion run the plain layer and its autograd, not the
+    kernel and the plain forward again behind it."""
+    return (x.device.type == "cuda" and x.dtype == torch.float32 and not grad
             and kernel_size == 3 and demodulate and x.shape[1] % 4 == 0
             and (not up or len(blur_kernel) == 4))
 
@@ -75,10 +72,12 @@ def styled_conv_weights(w_scaled, up=False, blur_kernel=(1, 3, 3, 1)):
 
 
 def styled_conv3_plain(x, w_scaled, s, noise, noise_weight, bias, *, up=False,
-                       blur_kernel=(1, 3, 3, 1)):
-    """``modulated_conv2d`` (demodulated) -> ``NoiseInjection`` ->
-    ``FusedLeakyReLU``, op for op as the modules compute them."""
-    out = modulated_conv2d(x, w_scaled, s, up=up, blur_kernel=blur_kernel)
+                       blur_kernel=(1, 3, 3, 1), demodulate=True):
+    """``modulated_conv2d`` -> ``NoiseInjection`` -> ``FusedLeakyReLU``, op
+    for op as the modules compute them: the unmasked StyledConv wherever
+    the kernel does not run (the CPU, bf16, a gradient)."""
+    out = modulated_conv2d(x, w_scaled, s, demodulate=demodulate, up=up,
+                           blur_kernel=blur_kernel)
     if noise is not None:
         out = out + noise_weight.to(out.dtype) * noise.to(out.dtype)
     return fused_leaky_relu(out, bias)
@@ -127,7 +126,6 @@ def _launch(x, w_scaled, s, noise, noise_weight, bias, packed, up, blur_kernel):
     f = 2 if up else 1
     out = torch.empty((B, f * H, f * W, Co), dtype=torch.float32, device=dev)
     fn = kernel_lib.load("styled_conv3_tf32", _ENTRIES).styled_conv3_tf32
-    th, bn = plan(B, H, W, Ci, Co, up)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(xh.data_ptr(), packed.data_ptr(), s.data_ptr(), d.data_ptr(),
@@ -135,7 +133,7 @@ def _launch(x, w_scaled, s, noise, noise_weight, bias, packed, up, blur_kernel):
                  None if noise is None else noise_weight.data_ptr(),
                  out.data_ptr(), B, H, W, Ci, Co, int(up),
                  0 if noise is None or noise.shape[0] == 1 else f * H * f * W,
-                 th, bn, stream)
+                 bn, stream)
     kernel_lib.check_launch("styled_conv3_tf32", err)
     styled_conv3.launches += 1
     return out.permute(0, 3, 1, 2)

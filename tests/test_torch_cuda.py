@@ -1068,3 +1068,27 @@ def test_gpen_and_bf16_syntheses_launch_no_styled_conv(card):
         G.to(torch.bfloat16)([latent.bfloat16()], None, mask.bfloat16(),
                              input_is_latent=True, randomize_noise=False)
     assert sc.styled_conv3.launches == 2
+
+
+@pytest.mark.cuda
+def test_styled_conv_runs_the_plain_layer_where_a_gradient_is_taken(card):
+    """With grad mode on (a training or inversion step) the unmasked
+    StyledConvs run their plain version: no launch, and the generator's
+    output and its gradients are those of the layers' modules."""
+    from e4s_tpu_torch.models.layers import init_module_
+    from e4s_tpu_torch.models.stylegan2 import Generator
+
+    G = init_module_(Generator(64, remaining_layer_idx=7, ch_div=8),
+                     torch.Generator().manual_seed(0)).to(card)
+    latent = torch.randn((2, 12, 10, 512), device=card, requires_grad=True)
+    mask = torch.zeros((2, 12, 64, 64), device=card)
+    mask[:, 0] = 1
+    sc.styled_conv3.launches = 0
+    img = G([latent], None, mask, input_is_latent=True, randomize_noise=False)[0]
+    assert sc.styled_conv3.launches == 0
+    with torch.no_grad():
+        fast = G([latent], None, mask, input_is_latent=True, randomize_noise=False)[0]
+    assert sc.styled_conv3.launches == 2
+    _check(fast, img.detach())
+    img.square().mean().backward()
+    assert latent.grad is not None and torch.isfinite(latent.grad).all()

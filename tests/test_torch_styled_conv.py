@@ -205,9 +205,12 @@ def _fake(device, dtype, ci):
     ("cuda", torch.float32, 64, True, (1, 2, 1), False),
     ("cuda", torch.float32, 64, False, (1, 2, 1), True)])
 def test_kernel_takes_cuda_f32_and_the_polyphase_blur(device, dtype, ci, up, taps, want):
-    assert sc.kernel_takes(_fake(device, dtype, ci), 3, True, up, taps) is want
-    assert not sc.kernel_takes(_fake(device, dtype, ci), 1, True, up, taps)
-    assert not sc.kernel_takes(_fake(device, dtype, ci), 3, False, up, taps)
+    """With grad mode on (training, inversion, editing) the plain layer
+    runs, whatever the input."""
+    assert sc.kernel_takes(_fake(device, dtype, ci), 3, True, up, taps, False) is want
+    assert not sc.kernel_takes(_fake(device, dtype, ci), 3, True, up, taps, True)
+    assert not sc.kernel_takes(_fake(device, dtype, ci), 1, True, up, taps, False)
+    assert not sc.kernel_takes(_fake(device, dtype, ci), 3, False, up, taps, False)
 
 
 @pytest.mark.parametrize("K,out_size,want", [
@@ -217,7 +220,7 @@ def test_kernel_takes_cuda_f32_and_the_polyphase_blur(device, dtype, ci, up, tap
                               (128, 64, True), (64, 64, False)])])
 def test_the_unmasked_styled_convs_of_the_generator(K, out_size, want):
     """Layers from K on are the unmasked StyledConvs that take the kernel:
-    at 1024^2 and K = 13 the four at 512^2 and 1024^2, with their plans
+    at 1024^2 and K = 13 the four at 512^2 and 1024^2, with their N tiles
     (the up layers' four phases in blocks of 64 columns, 8 x 16 pixels; the
     64-channel layer in one block of 64; the 32-channel layer in one block
     of 32, 16 x 16 pixels)."""
@@ -228,9 +231,7 @@ def test_the_unmasked_styled_convs_of_the_generator(K, out_size, want):
            for m in convs]
     assert got == want
     if out_size == 1024 and K == 13:
-        plans = [sc.plan(8, 256 * (1 + (i > 1)), 256 * (1 + (i > 1)), Ci, Co, up)
-                 for i, (Ci, Co, up) in enumerate(got)]
-        assert plans == [(8, 64), (8, 64), (8, 64), (16, 32)]
+        assert [sc.tile_n(Co, up) for _, Co, up in got] == [64, 64, 64, 32]
 
 
 def test_styled_conv_caches_its_packed_weight():
