@@ -159,8 +159,8 @@ class StyledConv(nn.Module):
         tensors = (x, w_scaled, conv.modulation(style), noise, self.noise.weight,
                    self.activate.bias)
         blur = conv.blur.kernel if conv.upsample else conv.blur_kernel
-        if styled_conv.kernel_takes(x, conv.kernel_size, conv.demodulate, conv.upsample,
-                                    conv.blur_kernel, torch.is_grad_enabled()):
+        if styled_conv.kernel_takes(x, noise, conv.kernel_size, conv.demodulate,
+                                    conv.upsample, conv.blur_kernel, torch.is_grad_enabled()):
             packed = cached(self, (conv.weight,), lambda: styled_conv.styled_conv_weights(
                 w_scaled, conv.upsample, conv.blur_kernel))
             return styled_conv.styled_conv3(*tensors, up=conv.upsample, blur_kernel=blur,

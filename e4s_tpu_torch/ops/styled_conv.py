@@ -50,14 +50,17 @@ def tile_n(Co, up) -> int:
     return 32 if (4 if up else 1) * Co <= 32 else 64
 
 
-def kernel_takes(x, kernel_size, demodulate, up, blur_kernel, grad) -> bool:
+def kernel_takes(x, noise, kernel_size, demodulate, up, blur_kernel, grad) -> bool:
     """Whether a StyledConv on ``x`` goes to the kernel: a CUDA float32
-    input, a demodulated 3x3 weight, Ci a multiple of 4 (one 16-byte copy),
-    for ``up`` a 4-tap blur (the polyphase fold), and grad mode off
-    (``grad``: ``torch.is_grad_enabled()``), so that the gradient steps of
-    training and inversion run the plain layer and its autograd, not the
-    kernel and the plain forward again behind it."""
+    input, no noise or one float32 map a pixel ([1 or B,1,Ho,Wo], not the
+    edit's full-channel noise), a demodulated 3x3 weight, Ci a multiple of
+    4 (one 16-byte copy), for ``up`` a 4-tap blur (the polyphase fold), and
+    grad mode off (``grad``: ``torch.is_grad_enabled()``), so that the
+    gradient steps of training and inversion run the plain layer and its
+    autograd, not the kernel and the plain forward again behind it."""
     return (x.device.type == "cuda" and x.dtype == torch.float32 and not grad
+            and (noise is None or (noise.shape[1] == 1 and noise.dtype == torch.float32
+                                   and noise.is_contiguous()))
             and kernel_size == 3 and demodulate and x.shape[1] % 4 == 0
             and (not up or len(blur_kernel) == 4))
 

@@ -1092,3 +1092,32 @@ def test_styled_conv_runs_the_plain_layer_where_a_gradient_is_taken(card):
     _check(fast, img.detach())
     img.square().mean().backward()
     assert latent.grad is not None and torch.isfinite(latent.grad).all()
+
+
+@pytest.mark.cuda
+def test_styled_conv_runs_the_plain_layer_under_the_edits_full_channel_noise(card):
+    """The edit's and the demo's fixed noise has a map per channel
+    ([1,C,r,r]); the kernel adds one map a pixel, so those layers run the
+    plain version (no launch), and the same noise's first channel runs
+    the kernel, each against the plain composition."""
+    from e4s_tpu_torch.models.layers import init_module_
+    from e4s_tpu_torch.models.stylegan2 import Generator
+    from e4s_tpu_torch.pipelines.face_edit import sample_fixed_noise
+
+    G = init_module_(Generator(64, remaining_layer_idx=7),
+                     torch.Generator().manual_seed(0)).to(card)
+    latent = torch.randn((2, 12, 10, 512), device=card)
+    mask = torch.zeros((2, 12, 64, 64), device=card)
+    mask[:, 0] = 1
+    full = [n.to(card) for n in sample_fixed_noise(64)]
+    with torch.no_grad():
+        for noise, launches in ((full, 0), ([n[:, :1].contiguous() for n in full], 2)):
+            sc.styled_conv3.launches = 0
+            img = G([latent], None, mask, input_is_latent=True, randomize_noise=False,
+                    noise=noise)[0]
+            assert sc.styled_conv3.launches == launches
+            with torch.enable_grad():  # grad mode on: the plain layers
+                want = G([latent], None, mask, input_is_latent=True,
+                         randomize_noise=False, noise=noise)[0]
+            assert sc.styled_conv3.launches == launches
+            _check(img, want.detach())

@@ -205,12 +205,18 @@ def _fake(device, dtype, ci):
     ("cuda", torch.float32, 64, True, (1, 2, 1), False),
     ("cuda", torch.float32, 64, False, (1, 2, 1), True)])
 def test_kernel_takes_cuda_f32_and_the_polyphase_blur(device, dtype, ci, up, taps, want):
-    """With grad mode on (training, inversion, editing) the plain layer
-    runs, whatever the input."""
-    assert sc.kernel_takes(_fake(device, dtype, ci), 3, True, up, taps, False) is want
-    assert not sc.kernel_takes(_fake(device, dtype, ci), 3, True, up, taps, True)
-    assert not sc.kernel_takes(_fake(device, dtype, ci), 1, True, up, taps, False)
-    assert not sc.kernel_takes(_fake(device, dtype, ci), 3, False, up, taps, False)
+    """A map of noise a pixel (float32, contiguous) or none goes with the
+    input; the edit's full-channel noise, and grad mode on (a training or
+    inversion step), take the plain layer whatever the input."""
+    x = _fake(device, dtype, ci)
+    one, full = torch.zeros((1, 1, 8, 8)), torch.zeros((1, 16, 8, 8))
+    for noise in (None, one, one.expand(2, 1, 8, 8).contiguous()):
+        assert sc.kernel_takes(x, noise, 3, True, up, taps, False) is want
+    for noise in (full, one.double(), one.expand(2, 1, 8, 8)):
+        assert not sc.kernel_takes(x, noise, 3, True, up, taps, False)
+    assert not sc.kernel_takes(x, None, 3, True, up, taps, True)
+    assert not sc.kernel_takes(x, None, 1, True, up, taps, False)
+    assert not sc.kernel_takes(x, None, 3, False, up, taps, False)
 
 
 @pytest.mark.parametrize("K,out_size,want", [
